@@ -1,0 +1,387 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port (ringo_tpu_torch) on one card.
+
+    python3 chip_smoke.py
+
+1. builds the CUDA kernels from ringo_tpu_torch/csrc into build/ and prints
+   the card's name and power limit;
+2. kernel phase: calls each kernel's wrapper at the shapes of the Jindo
+   commit on ZP255 at N = 2^19, holds the result against its plain PyTorch
+   version on the same inputs (exact equality: every value is an integer)
+   and times kernel, plain version and, where one exists, the single
+   PyTorch call computing the same function;
+3. slice phase: builds the N = 2^19 prover on the card (CRS expansion timed
+   on the host), commits once to warm up, then with every launch count at
+   0 drives ``commit`` three times (timed) and ``commit_many`` once, and
+   fails unless every kernel was launched; checks the card against the
+   port's CPU plain path at N = 2^13 and against the golden JAX-package
+   fixture at N = 2^10 (exact equality).
+
+Any failure raises.  The line before the last is the kernel table as JSON;
+the last line is {"ok": true, "device": {...}}.  It needs the repository
+beside it and exits non-zero, printing no result, when CUDA is absent.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+OUT_DIR = os.path.join(ROOT, "chiprun_out")
+
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s and int8 tensor
+# ops/s.  32-bit integer operations: 132 SMs x 128 lanes x 1.98 GHz boost,
+# one operation per lane and clock (the FP32 lane count; the data sheet's
+# 67 TFLOP/s counts an FMA as two).  The white paper lists 64 INT32 lanes
+# per SM, but the compiler fuses source operations (IADD3, LOP3, PRMT), so
+# the larger rate is the one that keeps the bound a lower bound.
+HBM_BYTES_PER_S = 3.35e12
+INT8_TC_OPS_PER_S = 1.979e15
+INT32_OPS_PER_S = 132 * 128 * 1.98e9
+
+LOG_N = 19
+CRS = b"Jindo!"
+SEED = b"chip-smoke"
+
+
+def log(*args):
+    print(*args, flush=True)
+
+
+def bound_ms(n_bytes: float, n_ops: float, ops_rate: float):
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / ops_rate * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def time_ms(fn, reps: int = 10, windows: int = 3) -> float:
+    """Median over ``windows`` of the mean CUDA-event time of ``reps``
+    calls, after one warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(windows):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        b.synchronize()
+        out.append(a.elapsed_time(b) / reps)
+    return statistics.median(out)
+
+
+def max_abs_err(a, b, what: str) -> int:
+    """max |kernel - plain| over the lanes; raises unless it is 0 (every
+    value compared is an integer)."""
+    if a.shape != b.shape:
+        raise AssertionError(f"{what}: shape {tuple(a.shape)} != {tuple(b.shape)}")
+    err = int((a.long() - b.long()).abs().max().item()) if a.numel() else 0
+    if err:
+        bad = int((a != b).sum().item())
+        raise AssertionError(f"{what}: kernel != plain version ({bad} lanes)")
+    return err
+
+
+# ------------------------------------------------------------- kernel phase
+
+def kernel_phase(params):
+    import torch
+
+    from ringo_tpu_torch.csprng import chacha, gaussian
+    from ringo_tpu_torch.ops import mac_matmul, ntt_matmul
+
+    dev = torch.device("cuda")
+    p = params
+    gen = torch.Generator(device="cpu").manual_seed(19)
+    rng = np.random.default_rng(19)
+    B, R, d = p.cols + 1, p.rows, p.degree
+    K = p.mlwe_rank + p.in_msis_rank
+    J, dcmp, outR = p.in_msis_rank, p.in_com_dcmp_len, p.out_msis_rank
+    rows = []
+    errs = {"ntt": 0, "chacha": 0, "twin": 0}
+
+    # -- NTT: every shape of the commit, the encode pass timed
+    ring, ring_out = p.ring_q.on(dev), p.ring_q_out.on(dev)
+    shapes = [("encode ntt", ring, "fwd", B * R), ("mlwe ntt", ring, "fwd", B * K),
+              ("inner intt", ring, "inv", J * B), ("outer ntt", ring_out, "fwd", dcmp),
+              ("outer intt", ring_out, "inv", outR), ("final ntt", ring_out, "fwd", outR)]
+    ntt_row = None
+    for label, rg, way, n in shapes:
+        mm = rg._matmul_ntt()
+        tab = getattr(mm, way)
+        q = torch.tensor(rg.primes, dtype=torch.int64).reshape(-1, 1, 1)
+        v = (torch.randint(0, 1 << 62, (rg.L, n, d), generator=gen) % q
+             ).to(torch.int32).to(dev)
+        v[:, 0, :4] = (rg.q - 1).to(torch.int32)[:, None]
+        got = ntt_matmul.ntt_mform_cuda(v, tab, mm.q32)
+        want = ntt_matmul.ntt_mform_plain(v, tab, rg.q)
+        torch.cuda.synchronize()
+        errs["ntt"] = max(errs["ntt"], max_abs_err(got, want, f"ntt {label}"))
+        ms = time_ms(lambda: ntt_matmul.ntt_mform_cuda(v, tab, mm.q32))
+        log(f"ntt {label}: L={rg.L} rows={n} kernel {ms:.4f} ms, equal to plain")
+        if label == "encode ntt":
+            plain_ms = time_ms(lambda: ntt_matmul.ntt_mform_plain(v, tab, rg.q),
+                               reps=3)
+            xa = mac_matmul.byte_planes(v, dim=2)
+            pf = tab.planes_f64
+            corr = tab.corr[:, None, :].to(torch.int64)
+            lib_ms = time_ms(lambda: mac_matmul.recombine_mod_q(
+                rg.q, torch.bmm(xa, pf).to(torch.int64) + corr, d), reps=3)
+            L = rg.L
+            nbytes = 2 * L * n * d * 4 + L * 1280 * 1024 + L * 1280 * 4 + L * 4
+            nops = 2.0 * L * n * 1024 * 1280
+            b, by = bound_ms(nbytes, nops, INT8_TC_OPS_PER_S)
+            ntt_row = dict(
+                name="ntt_mform", route="cuda",
+                source="ringo_tpu_torch/csrc/ntt_mform.cu",
+                replaces="ringo_tpu/ops/ntt_pallas.py:106",
+                ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                library_ms=lib_ms, shape=f"[{L}, {n}, {d}] int32", kernel="ntt")
+            del xa
+    rows.append(ntt_row)
+
+    # -- ChaCha20: u_enc and u_ml streams, u_enc timed
+    keys = torch.randint(-(1 << 31), 1 << 31, (1, 8), generator=gen,
+                         dtype=torch.int64).to(torch.int32).to(dev)
+    nb_enc = -(-B * R * d // 8)
+    nb_ml = -(-p.cols * K * d // 8)
+    for nb in (nb_enc, nb_ml):
+        got = chacha.keystream_u32_cuda(keys, nb)
+        want = chacha.keystream_u32_plain(keys, nb)
+        torch.cuda.synchronize()
+        errs["chacha"] = max(errs["chacha"],
+                             max_abs_err(got, want, f"chacha20 n_blocks={nb}"))
+        log(f"chacha20 n_blocks={nb}: equal to plain")
+    ms = time_ms(lambda: chacha.keystream_u32_cuda(keys, nb_enc))
+    plain_ms = time_ms(lambda: chacha.keystream_u32_plain(keys, nb_enc), reps=2)
+    b, by = bound_ms(32 + nb_enc * 64, nb_enc * 976.0, INT32_OPS_PER_S)
+    rows.append(dict(
+        name="chacha20", route="cuda", source="ringo_tpu_torch/csrc/chacha20.cu",
+        replaces="ringo_tpu/ops/chacha_pallas.py:47", ms=ms, plain_ms=plain_ms,
+        bound_ms=b, bound_by=by, library_ms=None,
+        shape=f"1 key x {nb_enc} blocks", kernel="chacha"))
+
+    # -- twin search: encode lanes (sigma_ecd) and MLWE lanes (sigma_mlwe)
+    twin_row = None
+    for label, sigma, n, zero in (("ecd", p.ecd_std_dev, B * R * d, False),
+                                  ("mlwe", p.mlwe_std_dev, p.cols * K * d, True)):
+        tw = gaussian.TwinCDTDevice(sigma, dev)
+        host_t = tw.tables
+        if zero:
+            c0 = torch.zeros(n, dtype=torch.int32)
+            c1 = c0.clone()
+        else:
+            c0 = torch.randint(0, 128, (n,), generator=gen, dtype=torch.int32)
+            c1 = (c0 + torch.randint(0, 2, (n,), generator=gen,
+                                     dtype=torch.int32)) % 128
+        u = rng.integers(0, 1 << 64, n, dtype=np.uint64)
+        # boundary draws (tests/test_twin_pallas.py:22-25): exact table
+        # hits, their neighbours and 24-bit-prefix ties
+        u[:8] = [0, 1, (1 << 64) - 1, host_t[5][10], host_t[7][3] + 1,
+                 host_t[7][3] - 1, (host_t[9][2] >> np.uint64(40)) << np.uint64(40),
+                 host_t[0][host_t.shape[1] // 2]]
+        u = torch.from_numpy(u.view(np.int64))
+        c0, c1, u = c0.to(dev), c1.to(dev), u.to(dev)
+        got = gaussian.twin_search_cuda(tw.tables_raw, c0, c1, u)
+        want = gaussian.twin_search_plain(tw.tables_flipped, c0, c1, u)
+        torch.cuda.synchronize()
+        for i in range(2):
+            errs["twin"] = max(errs["twin"], max_abs_err(
+                got[i], want[i], f"twin {label} v{i}"))
+        ms = time_ms(lambda: gaussian.twin_search_cuda(tw.tables_raw, c0, c1, u))
+        log(f"twin {label}: lanes={n} T={host_t.shape[1]} kernel {ms:.4f} ms, "
+            "equal to plain")
+        if label == "ecd":
+            plain_ms = time_ms(lambda: gaussian.twin_search_plain(
+                tw.tables_flipped, c0, c1, u), reps=1)
+            searches = n + int((c0 != c1).sum())
+            nbytes = n * (4 + 4 + 8 + 8 + 8) + 128 * host_t.shape[1] * 8
+            # 7 steps of load, compare and two selects per search
+            b, by = bound_ms(nbytes, searches * 7 * 4.0, INT32_OPS_PER_S)
+            twin_row = dict(
+                name="twin_search", route="cuda",
+                source="ringo_tpu_torch/csrc/twin_search.cu",
+                replaces="ringo_tpu/ops/twin_pallas.py:57", ms=ms,
+                plain_ms=plain_ms, bound_ms=b, bound_by=by, library_ms=None,
+                shape=f"{n} lanes, T={host_t.shape[1]}", kernel="twin")
+    rows.append(twin_row)
+    for r in rows:
+        r["max_abs_err"] = errs[r["kernel"]]
+    return rows
+
+
+# -------------------------------------------------------------- slice phase
+
+def random_values(spec, n: int, seed: int):
+    """Digit planes [w, n] of values below p (top digit below p's)."""
+    rng = np.random.default_rng(seed)
+    v = rng.integers(0, 1 << 16, (spec.w, n), dtype=np.int64)
+    v[-1] %= int(spec.p_digits[-1])
+    return v
+
+
+def check_commitment(params, com, op):
+    import torch
+
+    p = params
+    d = p.degree
+    want = (2, p.ring_q_out.L, p.out_msis_rank, d)
+    if tuple(com.value.shape) != want:
+        raise AssertionError(f"commitment shape {tuple(com.value.shape)} != {want}")
+    for name, t in (("commitment", com.value), ("in_commit", op.in_commit)):
+        if t.min().item() < 0 or t.max().item() >= 1 << 16:
+            raise AssertionError(f"{name}: digits out of range")
+    res = (com.value[0] | (com.value[1] << 16))
+    q = torch.tensor(p.ring_q_out.primes).reshape(-1, 1, 1)
+    if not bool((res < q).all()):
+        raise AssertionError("commitment residues not reduced")
+    if tuple(op.seeds[0].shape) != (p.cols + 1, p.rows, d):
+        raise AssertionError("opening seed shape")
+
+
+def same_commit(a, b, what: str):
+    import torch
+
+    (ca, oa), (cb, ob) = a, b
+    if ca.to_bytes() != cb.to_bytes():
+        raise AssertionError(f"{what}: commitment bytes differ")
+    for x, y, name in ((oa.in_commit, ob.in_commit, "in_commit"),
+                       (oa.seeds[0], ob.seeds[0], "e_i64 seed"),
+                       (oa.seeds[1], ob.seeds[1], "noise seed")):
+        if not torch.equal(x.cpu(), y.cpu()):
+            raise AssertionError(f"{what}: {name} differs")
+
+
+def slice_phase(backend, jindo, ZP255):
+    import torch
+
+    # main path at N = 2^19
+    params = jindo.new_parameters(ZP255, 1 << LOG_N, 1)
+    t0 = time.perf_counter()
+    ck = jindo.CommitKey(params, CRS, device="cuda")
+    crs_s = time.perf_counter() - t0
+    log(f"CRS expansion (AES-256-CTR on the host) N=2^{LOG_N}: {crs_s:.3f} s")
+    prv = jindo.Prover(params, CRS, seed=SEED, device="cuda", ck=ck)
+    v = random_values(params.spec, 1 << LOG_N, 1)
+    v2 = random_values(params.spec, (1 << LOG_N) - 12345, 2)
+    t0 = time.perf_counter()
+    com, op = prv.commit(v)
+    torch.cuda.synchronize()
+    log(f"warm-up commit: {time.perf_counter() - t0:.3f} s")
+    check_commitment(params, com, op)
+
+    backend.reset_launches()
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        com, op = prv.commit(v)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    many = prv.commit_many([v, v2])
+    torch.cuda.synchronize()
+    launches = dict(backend.LAUNCHES)
+    for c, o in [(com, op)] + many:
+        check_commitment(params, c, o)
+    med = statistics.median(times)
+    log(f"commit N=2^{LOG_N}: times {times} s, median {med:.4f} s, "
+        f"{(1 << LOG_N) / med:.1f} coeffs/s")
+    log(f"launches over 3 commits + commit_many(2): {launches}")
+    for k, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {k} was not launched on the main path")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    slice_rec = dict(log_n=LOG_N, commit_s=times, commit_median_s=med,
+                     coeffs_per_s=(1 << LOG_N) / med, crs_expand_s=crs_s,
+                     launches=launches, peak_mem_gib=peak)
+    del prv, ck, many, com, op
+    torch.cuda.empty_cache()
+
+    # card vs the port's CPU plain path at N = 2^13
+    p13 = jindo.new_parameters(ZP255, 1 << 13, 1)
+    vs = [random_values(p13.spec, 1 << 13, 3), random_values(p13.spec, 5000, 4)]
+    outs = {}
+    for devname in ("cuda", "cpu"):
+        pr = jindo.Prover(p13, CRS, seed=SEED, device=devname)
+        outs[devname] = [pr.commit(vs[0])] + pr.commit_many(vs)
+    for i, (a, b) in enumerate(zip(outs["cuda"], outs["cpu"])):
+        same_commit(a, b, f"N=2^13 commit {i}: card vs CPU")
+    log("N=2^13: card equals the CPU plain path (commit + commit_many)")
+
+    # card vs the golden JAX-package fixture at N = 2^10
+    fx = np.load(os.path.join(ROOT, "ringo_tpu_torch", "testdata",
+                              "commit_zp255_n10.npz"))
+    p10 = jindo.new_parameters(ZP255, 1 << int(fx["log_n"]), 1)
+    pr = jindo.Prover(p10, bytes(fx["crs"]), seed=bytes(fx["seed"]),
+                      device="cuda")
+    c, o = pr.commit(fx["v"])
+    if c.to_bytes() != bytes(fx["commit_bytes"]):
+        raise AssertionError("N=2^10: commitment differs from the JAX fixture")
+    for t, key in ((o.in_commit, "in_commit"), (o.seeds[0], "e_i64"),
+                   (o.seeds[1], "noise")):
+        if not np.array_equal(t.cpu().numpy(), fx[key].astype(np.int64)):
+            raise AssertionError(f"N=2^10: {key} differs from the JAX fixture")
+    log("N=2^10: card equals the JAX-package golden fixture")
+    return slice_rec
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    try:
+        from ringo_tpu_torch import backend, jindo
+        from ringo_tpu_torch.fields import ZP255
+    except ImportError as e:
+        print(f"chip_smoke: the port is not beside this script ({e})",
+              file=sys.stderr)
+        return 2
+
+    t_start = time.perf_counter()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    log(f"torch {torch.__version__} cuda {torch.version.cuda}")
+
+    t0 = time.perf_counter()
+    so = backend.build(verbose=True)
+    backend.lib()
+    log(f"built {os.path.relpath(so, ROOT)} in {time.perf_counter() - t0:.1f} s")
+
+    params = jindo.new_parameters(ZP255, 1 << LOG_N, 1)
+    rows = kernel_phase(params)
+    slice_rec = slice_phase(backend, jindo, ZP255)
+    for r in rows:
+        r["launches"] = slice_rec["launches"][r["kernel"]]
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    table = {"kernels": [{k: r[k] for k in keys} for r in rows]}
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
+        json.dump(dict(card=smi, kernels=rows, slice=slice_rec,
+                       seconds=time.perf_counter() - t_start), f, indent=1)
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    print(smi)
+    print(json.dumps(table))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
