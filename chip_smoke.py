@@ -9,11 +9,16 @@
    commit on ZP255 at N = 2^19, holds the result against its plain PyTorch
    version on the same inputs (exact equality: every value is an integer)
    and times kernel, plain version and, where one exists, the single
-   PyTorch call computing the same function;
+   PyTorch call computing the same function.  The NTT kernel is timed and
+   bounded at each of the six shapes of a commit and at the batched encode
+   shape of commit_many with t = 4, checked at ragged row counts and with
+   primes on both sides of 2^24, and measured against two yardsticks the
+   port never calls (float64 bmm, torch._int_mm);
 3. slice phase: builds the N = 2^19 prover on the card (CRS expansion timed
    on the host), commits once to warm up, then with every launch count at
-   0 drives ``commit`` three times (timed) and ``commit_many`` once, and
-   fails unless every kernel was launched; checks the card against the
+   0 drives ``commit`` three times (timed) and ``commit_many`` once, reads
+   each one's peak device memory, and fails unless every kernel was
+   launched; checks the card against the
    port's CPU plain path at N = 2^13 and against the golden JAX-package
    fixture at N = 2^10 (exact equality).
 
@@ -93,6 +98,34 @@ def max_abs_err(a, b, what: str) -> int:
     return err
 
 
+def int_mm_yardstick(xa8, tab, rg, want):
+    """Time of ``torch._int_mm`` per prime on the kernel's int8 operands
+    plus the same recombine, or None where the installed PyTorch lacks the
+    call or refuses the shape.  A measurement only: the port never calls it."""
+    import torch
+
+    from ringo_tpu_torch.ops import mac_matmul
+
+    if not hasattr(torch, "_int_mm"):
+        log("torch._int_mm: absent from this PyTorch")
+        return None
+    corr = tab.corr[:, None, :].to(torch.int64)
+
+    def run():
+        t = torch.stack([torch._int_mm(xa8[l], tab.planes[l])
+                         for l in range(rg.L)])
+        return mac_matmul.recombine_mod_q(rg.q, t.to(torch.int64) + corr,
+                                          xa8.shape[2] // 4)
+
+    try:
+        got = run()
+    except RuntimeError as e:
+        log(f"torch._int_mm refused the shape: {e}")
+        return None
+    max_abs_err(got, want, "torch._int_mm yardstick")
+    return time_ms(run, reps=3)
+
+
 # ------------------------------------------------------------- kernel phase
 
 def kernel_phase(params):
@@ -100,6 +133,7 @@ def kernel_phase(params):
 
     from ringo_tpu_torch.csprng import chacha, gaussian
     from ringo_tpu_torch.ops import mac_matmul, ntt_matmul
+    from ringo_tpu_torch.rings import rns
 
     dev = torch.device("cuda")
     p = params
@@ -111,25 +145,41 @@ def kernel_phase(params):
     rows = []
     errs = {"ntt": 0, "chacha": 0, "twin": 0}
 
-    # -- NTT: every shape of the commit, the encode pass timed
+    # -- NTT: every shape of the commit timed beside its bound; the encode
+    # pass also against the plain version and two library yardsticks
     ring, ring_out = p.ring_q.on(dev), p.ring_q_out.on(dev)
     shapes = [("encode ntt", ring, "fwd", B * R), ("mlwe ntt", ring, "fwd", B * K),
               ("inner intt", ring, "inv", J * B), ("outer ntt", ring_out, "fwd", dcmp),
               ("outer intt", ring_out, "inv", outR), ("final ntt", ring_out, "fwd", outR)]
-    ntt_row = None
-    for label, rg, way, n in shapes:
-        mm = rg._matmul_ntt()
-        tab = getattr(mm, way)
+
+    def residues(rg, n):
         q = torch.tensor(rg.primes, dtype=torch.int64).reshape(-1, 1, 1)
         v = (torch.randint(0, 1 << 62, (rg.L, n, d), generator=gen) % q
              ).to(torch.int32).to(dev)
         v[:, 0, :4] = (rg.q - 1).to(torch.int32)[:, None]
+        return v
+
+    def ntt_bound(L, n):
+        # v in, out, the int8 map, q and the Barrett constants; all four
+        # byte planes against all five 7-bit planes
+        nbytes = 2 * L * n * d * 4 + L * 1280 * 1024 + L * (4 + 8)
+        return bound_ms(nbytes, 2.0 * L * n * 1024 * 1280, INT8_TC_OPS_PER_S)
+
+    ntt_row, ntt_passes = None, []
+    for label, rg, way, n in shapes:
+        mm = rg._matmul_ntt()
+        tab = getattr(mm, way)
+        v = residues(rg, n)
         got = ntt_matmul.ntt_mform_cuda(v, tab, mm.q32)
         want = ntt_matmul.ntt_mform_plain(v, tab, rg.q)
         torch.cuda.synchronize()
         errs["ntt"] = max(errs["ntt"], max_abs_err(got, want, f"ntt {label}"))
         ms = time_ms(lambda: ntt_matmul.ntt_mform_cuda(v, tab, mm.q32))
-        log(f"ntt {label}: L={rg.L} rows={n} kernel {ms:.4f} ms, equal to plain")
+        b, by = ntt_bound(rg.L, n)
+        ntt_passes.append(dict(label=label, L=rg.L, rows=n, ms=ms, bound_ms=b,
+                               bound_by=by))
+        log(f"ntt {label}: L={rg.L} rows={n} kernel {ms:.4f} ms, bound "
+            f"{b:.4f} ms ({by}), equal to plain")
         if label == "encode ntt":
             plain_ms = time_ms(lambda: ntt_matmul.ntt_mform_plain(v, tab, rg.q),
                                reps=3)
@@ -138,17 +188,53 @@ def kernel_phase(params):
             corr = tab.corr[:, None, :].to(torch.int64)
             lib_ms = time_ms(lambda: mac_matmul.recombine_mod_q(
                 rg.q, torch.bmm(xa, pf).to(torch.int64) + corr, d), reps=3)
-            L = rg.L
-            nbytes = 2 * L * n * d * 4 + L * 1280 * 1024 + L * 1280 * 4 + L * 4
-            nops = 2.0 * L * n * 1024 * 1280
-            b, by = bound_ms(nbytes, nops, INT8_TC_OPS_PER_S)
+            int_mm_ms = int_mm_yardstick(xa.to(torch.int8), tab, rg, want)
             ntt_row = dict(
                 name="ntt_mform", route="cuda",
                 source="ringo_tpu_torch/csrc/ntt_mform.cu",
                 replaces="ringo_tpu/ops/ntt_pallas.py:106",
                 ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
-                library_ms=lib_ms, shape=f"[{L}, {n}, {d}] int32", kernel="ntt")
+                library_ms=lib_ms, int_mm_ms=int_mm_ms,
+                shape=f"[{rg.L}, {n}, {d}] int32", kernel="ntt")
             del xa
+    ntt_row["passes"] = ntt_passes
+    log(f"ntt per commit (6 launches): kernel "
+        f"{sum(r['ms'] for r in ntt_passes):.4f} ms, sum of bounds "
+        f"{sum(r['bound_ms'] for r in ntt_passes):.4f} ms")
+    log(f"ntt encode pass yardsticks: f64 bmm + recombine "
+        f"{ntt_row['library_ms']:.4f} ms, torch._int_mm per prime + recombine "
+        f"{ntt_row['int_mm_ms']}")
+
+    # ragged row counts, and the batched encode shape of commit_many (t=4)
+    mm = ring._matmul_ntt()
+    for n in (1, 6, 63, 64, 65, 127, 129, 4 * B * R):
+        v = residues(ring, n)
+        got = ntt_matmul.ntt_mform_cuda(v, mm.fwd, mm.q32)
+        want = ntt_matmul.ntt_mform_plain(v, mm.fwd, ring.q)
+        torch.cuda.synchronize()
+        errs["ntt"] = max(errs["ntt"], max_abs_err(got, want, f"ntt rows={n}"))
+        del want
+        if n == 4 * B * R:
+            ms = time_ms(lambda: ntt_matmul.ntt_mform_cuda(v, mm.fwd, mm.q32))
+            b, by = ntt_bound(ring.L, n)
+            ntt_row["t4"] = dict(L=ring.L, rows=n, ms=ms, bound_ms=b, bound_by=by)
+            log(f"ntt commit_many t=4 encode: L={ring.L} rows={n} kernel "
+                f"{ms:.4f} ms, bound {b:.4f} ms ({by}), equal to plain")
+    log("ntt ragged rows 1, 6, 63, 64, 65, 127, 129: equal to plain")
+    # both branches of the kernel's reduction: primes above and below 2^24
+    for bits in (30, 20):
+        rb = rns.RnsRing(d, rns.ntt_friendly_primes(bits, 2 * d, 2), dev)
+        mb = rb._matmul_ntt()
+        for tab in (mb.fwd, mb.inv):
+            v = residues(rb, 129)
+            got = ntt_matmul.ntt_mform_cuda(v, tab, mb.q32)
+            want = ntt_matmul.ntt_mform_plain(v, tab, rb.q)
+            torch.cuda.synchronize()
+            errs["ntt"] = max(errs["ntt"], max_abs_err(
+                got, want, f"ntt {bits}-bit primes"))
+    log("ntt 30-bit and 20-bit primes, both directions: equal to plain")
+    del v, got
+    torch.cuda.empty_cache()
     rows.append(ntt_row)
 
     # -- ChaCha20: u_enc and u_ml streams, u_enc timed
@@ -281,6 +367,9 @@ def slice_phase(backend, jindo, ZP255):
     log(f"warm-up commit: {time.perf_counter() - t0:.3f} s")
     check_commitment(params, com, op)
 
+    # the peaks below are the commits' own, not the kernel phase's
+    torch.cuda.reset_peak_memory_stats()
+    held_before = torch.cuda.memory_allocated() / 2 ** 30
     backend.reset_launches()
     times = []
     for _ in range(3):
@@ -289,8 +378,11 @@ def slice_phase(backend, jindo, ZP255):
         com, op = prv.commit(v)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
     many = prv.commit_many([v, v2])
     torch.cuda.synchronize()
+    peak_many = torch.cuda.max_memory_allocated() / 2 ** 30
     launches = dict(backend.LAUNCHES)
     for c, o in [(com, op)] + many:
         check_commitment(params, c, o)
@@ -301,10 +393,13 @@ def slice_phase(backend, jindo, ZP255):
     for k, n in launches.items():
         if n <= 0:
             raise AssertionError(f"kernel {k} was not launched on the main path")
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"peak device memory: 3 commits {peak:.3f} GiB, commit_many(2) "
+        f"{peak_many:.3f} GiB (held before: "
+        f"{held_before:.3f} GiB)")
     slice_rec = dict(log_n=LOG_N, commit_s=times, commit_median_s=med,
                      coeffs_per_s=(1 << LOG_N) / med, crs_expand_s=crs_s,
-                     launches=launches, peak_mem_gib=peak)
+                     launches=launches, peak_mem_gib=peak,
+                     peak_mem_many_gib=peak_many, held_before_gib=held_before)
     del prv, ck, many, com, op
     torch.cuda.empty_cache()
 

@@ -13,10 +13,23 @@ transform is one integer product:
 * y = sum_b 2^7b * T_b mod q.
 
 On a CUDA tensor ``MatmulNTT`` launches the hand-written kernel
-(csrc/ntt_mform.cu: int8 tensor cores, recombine in the epilogue); on a
-CPU tensor it runs ``ntt_mform_plain`` (byte split, float64 matmul,
-integer recombine).  Both equal the JAX package's matmul and Pallas NTTs
-bit for bit (tests/test_torch_ntt.py).
+(csrc/ntt_mform.cu); on a CPU tensor it runs ``ntt_mform_plain`` (byte
+split, float64 matmul, integer recombine).  Both equal the JAX package's
+matmul and Pallas NTTs bit for bit (tests/test_torch_ntt.py).
+
+The kernel is bound by operations (int8 tensor cores; at the commit's
+encode shape 1.3e11 multiply-adds against 0.2 GB), so its design is about
+operand re-reads.  It takes the contraction index as k = 4*j + a, which
+makes the bytes of a row of int32 residues, in memory order, the left
+operand: no byte split, the rows go from device memory into shared memory
+by TMA.  ``wgmma`` multiplies u8 by s8, so the bytes enter unsigned and the
+-128 offset and its correction column drop out of the same integer sums.
+The map is kept in the matching layout (``_Map.planes_k``, built here once
+per ring).  A block keeps one prime's 32-column slice of the map, all five
+planes (160 KB), resident in shared memory and walks many 64-row tiles, one
+``wgmma`` m64n160k32 per 32 bytes of k; the five plane sums of an output
+meet in one thread, which recombines them and reduces mod q without a
+division (``barrett_mu``, ``barrett_reduce``).
 """
 
 from __future__ import annotations
@@ -75,14 +88,36 @@ def _split_planes_i8(M: np.ndarray, primes):
     return out, corr
 
 
+def kernel_layout(planes: np.ndarray) -> np.ndarray:
+    """The map as the kernel reads it: [L, 5d, 4d] with the contraction
+    index last and reordered to k = 4*j + a, so that the bytes of a row of
+    int32 residues, in memory order, are the matching operand.
+    planes_k[l, n, 4*j + a] = planes[l, a*d + j, n]."""
+    L, kd, nd = planes.shape
+    d = kd // IN_PLANES
+    return np.ascontiguousarray(
+        planes.reshape(L, IN_PLANES, d, nd).transpose(0, 3, 2, 1)
+    ).reshape(L, nd, kd)
+
+
+def planes_from_kernel_layout(planes_k: np.ndarray) -> np.ndarray:
+    """Inverse of :func:`kernel_layout`."""
+    L, nd, kd = planes_k.shape
+    d = kd // IN_PLANES
+    return np.ascontiguousarray(
+        planes_k.reshape(L, nd, d, IN_PLANES).transpose(0, 3, 2, 1)
+    ).reshape(L, kd, nd)
+
+
 class _Map:
     """One direction's tables on the ring's device."""
 
-    def __init__(self, planes: np.ndarray, corr: np.ndarray, device):
+    def __init__(self, planes: np.ndarray, corr: np.ndarray, mu: np.ndarray,
+                 device):
         self.planes = torch.from_numpy(planes).to(device)       # [L, 4d, 5d]
-        # the kernel reads the map transposed: [L, 5d (n), 4d (k)]
-        self.planes_t = self.planes.transpose(1, 2).contiguous()
+        self.planes_k = torch.from_numpy(kernel_layout(planes)).to(device)
         self.corr = torch.from_numpy(corr).to(device)           # [L, 5d]
+        self.mu = torch.from_numpy(mu).to(device)               # [L] Barrett
         self._planes_f64 = None
 
     @property
@@ -104,23 +139,59 @@ def ntt_mform_plain(v: torch.Tensor, m: _Map, q: torch.Tensor) -> torch.Tensor:
     return recombine_mod_q(q, t, d)
 
 
+BARRETT_WIDE = 1 << 24   # above it the quotient of s < 2^56 fits 32 bits
+
+
+def barrett_mu(primes) -> np.ndarray:
+    """The kernel's division-free reduction constant per prime, as the
+    int64 bit pattern of a u64: floor(2^88 / q) for q > 2^24, else
+    floor(2^64 / q).  See :func:`barrett_reduce`."""
+    return np.array([(1 << (88 if int(q) > BARRETT_WIDE else 64)) // int(q)
+                     for q in primes], dtype=np.uint64).view(np.int64)
+
+
+def barrett_reduce(s: np.ndarray, q: int, mu: int) -> np.ndarray:
+    """What the kernel's epilogue computes, step for step, on uint64 sums
+    s < 2^56: s mod q with no division.  For q > 2^24,
+    qhat = (floor(s / 2^24) * mu) >> 64 as a 32 x 64-bit product; below,
+    qhat = (s * mu) >> 64 in full.  Either is floor(s / q) or one less, so
+    r = s - qhat * q (mod 2^32) < 2q and one conditional subtraction
+    remains.  Every step is done in 32-bit halves as the card does it."""
+    u64, m32 = np.uint64, np.uint64(0xFFFFFFFF)
+    s = s.astype(u64)
+    mu = u64(mu & ((1 << 64) - 1))
+    m0, m1 = mu & m32, mu >> u64(32)
+    if q > BARRETT_WIDE:
+        s24 = (s >> u64(24)) & m32
+        w = s24 * m1 + ((s24 * m0) >> u64(32))        # < 2^64
+        qhat = w >> u64(32)
+    else:
+        s0, s1 = s & m32, s >> u64(32)
+        mid = ((s0 * m0) >> u64(32)) + ((s0 * m1) & m32) + ((s1 * m0) & m32)
+        qhat = (s1 * m1 + ((s0 * m1) >> u64(32)) + ((s1 * m0) >> u64(32))
+                + (mid >> u64(32))) & m32
+    r = ((s & m32) - ((qhat & m32) * u64(q) & m32)) & m32
+    rq = (r - u64(q)) & m32
+    return np.minimum(r, rq)
+
+
 def ntt_mform_cuda(v: torch.Tensor, m: _Map, q32: torch.Tensor) -> torch.Tensor:
     """The CUDA kernel (csrc/ntt_mform.cu) on residues int32 [L, n, d],
     d = 256, on the card.  One launch for all L primes."""
     L, n, d = v.shape
     backend.require(v, torch.int32, name="v")
-    backend.require(m.planes_t, torch.int8, (L, P7 * d, IN_PLANES * d),
-                    name="planes_t")
-    backend.require(m.corr, torch.int32, (L, P7 * d), name="corr")
+    backend.require(m.planes_k, torch.int8, (L, P7 * d, IN_PLANES * d),
+                    name="planes_k")
     backend.require(q32, torch.int32, (L,), name="q")
+    backend.require(m.mu, torch.int64, (L,), name="mu")
     if d != MAX_D or not v.is_cuda:
         raise ValueError("ntt kernel: expected int32 [L, n, 256] on the card")
     if n == 0:
         return torch.empty_like(v)
     out = torch.empty_like(v)
     err = backend.lib().ringo_ntt_mform(
-        v.data_ptr(), m.planes_t.data_ptr(), m.corr.data_ptr(),
-        q32.data_ptr(), out.data_ptr(), L, n, backend.stream_ptr(v))
+        v.data_ptr(), m.planes_k.data_ptr(), q32.data_ptr(),
+        m.mu.data_ptr(), out.data_ptr(), L, n, backend.stream_ptr(v))
     backend.check(err, "ntt_mform")
     backend.LAUNCHES["ntt"] += 1
     return out
@@ -135,8 +206,9 @@ class MatmulNTT:
             raise ValueError(f"matmul NTT requires d == {MAX_D}")
         self.ring = ring
         fwd, inv = _build_maps(ring.primes, ring.d)
-        self.fwd = _Map(*_split_planes_i8(fwd, ring.primes), ring.device)
-        self.inv = _Map(*_split_planes_i8(inv, ring.primes), ring.device)
+        mu = barrett_mu(ring.primes)
+        self.fwd = _Map(*_split_planes_i8(fwd, ring.primes), mu, ring.device)
+        self.inv = _Map(*_split_planes_i8(inv, ring.primes), mu, ring.device)
         self.q32 = ring.q.to(torch.int32)
 
     def _apply(self, m: _Map, x: torch.Tensor) -> torch.Tensor:

@@ -49,16 +49,22 @@ def test_plain_matches_pallas_and_xla(rings, fn):
 
 
 def test_kernel_tables_match_reference(rings):
-    """The CUDA kernel reads the same int8 planes, transposed, and the
-    same correction column as the Pallas kernel."""
+    """The port holds the same int8 planes and correction column as the
+    Pallas kernel; the CUDA kernel's layout of the planes (contraction
+    index last, k = 4*j + a) round-trips to them."""
     ref, port = rings
     mm, pm = ref._matmul_ntt(), port._matmul_ntt()
     for name in ("fwd", "inv"):
         ref_planes = getattr(mm, f"{name}_planes")
         tab = getattr(pm, name)
         np.testing.assert_array_equal(tab.planes.numpy(), ref_planes)
-        np.testing.assert_array_equal(tab.planes_t.numpy(),
-                                      np.swapaxes(ref_planes, 1, 2))
+        pk = tab.planes_k.numpy()
+        np.testing.assert_array_equal(
+            ntt_matmul.planes_from_kernel_layout(pk), ref_planes)
+        j, a = np.arange(D)[:, None], np.arange(4)[None, :]
+        np.testing.assert_array_equal(
+            pk[:, :, (4 * j + a).ravel()],
+            np.swapaxes(ref_planes, 1, 2)[:, :, (a * D + j).ravel()])
         np.testing.assert_array_equal(tab.corr.numpy(),
                                       getattr(mm, f"{name}_corr")[:, 0, :])
 
@@ -86,3 +92,71 @@ def test_cuda_wrapper_refuses_cpu_tensors(rings):
     v = torch.zeros((port.L, 4, D), dtype=torch.int32)
     with pytest.raises(ValueError):
         ntt_matmul.ntt_mform_cuda(v, mm.fwd, mm.q32)
+
+
+# ---- the kernel's division-free reduction and its layout of the map
+
+def _commit_rings():
+    from ringo_tpu_torch import jindo
+    from ringo_tpu_torch.fields import ZP255
+    p = jindo.new_parameters(ZP255, 1 << 10, 1)
+    return {"ring_q": p.ring_q, "ring_q_out": p.ring_q_out}
+
+
+@pytest.mark.parametrize("name", ["ring_q", "ring_q_out"])
+def test_barrett_reduce_equals_mod(name):
+    """A numpy emulation of the kernel's epilogue reduction, 32-bit halves
+    and all, with the constants MatmulNTT hands the kernel, equals % q at
+    the edges and on 10^5 random sums below 2^56, for every prime."""
+    ring = _commit_rings()[name]
+    mu = ring._matmul_ntt().fwd.mu.numpy().view(np.uint64)
+    rng = np.random.default_rng(56)
+    for q, m in zip(ring.primes, mu):
+        s = np.concatenate([
+            np.array([0, q - 1, q, q + 1, 2 * q - 1, (1 << 56) - 1,
+                      (1 << 56) - q], dtype=np.uint64),
+            rng.integers(0, 1 << 56, 100_000, dtype=np.uint64)])
+        got = ntt_matmul.barrett_reduce(s, q, int(m))
+        np.testing.assert_array_equal(got, s % np.uint64(q))
+
+
+@pytest.mark.parametrize("q", [(1 << 30) + 3 * 512 + 1, (1 << 24) + 1,
+                               (1 << 24) - 3, (1 << 20) + 7, 12289])
+def test_barrett_reduce_both_branches(q):
+    """Above 2^24 the 32 x 64-bit product, at and below it the full one."""
+    m = int(ntt_matmul.barrett_mu([q]).view(np.uint64)[0])
+    assert m == (1 << (88 if q > (1 << 24) else 64)) // q
+    rng = np.random.default_rng(q)
+    s = np.concatenate([
+        np.array([0, q - 1, q, (1 << 56) - 1], dtype=np.uint64),
+        rng.integers(0, 1 << 56, 100_000, dtype=np.uint64)])
+    np.testing.assert_array_equal(ntt_matmul.barrett_reduce(s, q, m),
+                                  s % np.uint64(q))
+
+
+def test_kernel_layout_round_trip():
+    rng = np.random.default_rng(3)
+    planes = rng.integers(0, 128, (2, 4 * D, 5 * D)).astype(np.int8)
+    pk = ntt_matmul.kernel_layout(planes)
+    assert pk.shape == (2, 5 * D, 4 * D) and pk.flags.c_contiguous
+    assert pk[1, 7, 4 * 5 + 2] == planes[1, 2 * D + 5, 7]
+    np.testing.assert_array_equal(
+        ntt_matmul.planes_from_kernel_layout(pk), planes)
+    # the matching operand: a row of int32 residues read as bytes
+    x = rng.integers(0, 1 << 31, (3, D)).astype(np.int32)
+    by = x.view(np.uint8).reshape(3, 4 * D).astype(np.int64)
+    split = np.concatenate([(x.astype(np.int64) >> (8 * a)) & 0xFF
+                            for a in range(4)], axis=1)
+    np.testing.assert_array_equal(by @ pk[0].T.astype(np.int64),
+                                  split @ planes[0].astype(np.int64))
+
+
+@pytest.mark.parametrize("n", [1, 6, 65])
+def test_plain_matches_xla_at_ragged_rows(rings, n):
+    ref, port = rings
+    mm = ref._matmul_ntt()
+    x = _rand_poly(ref, max(n, 2), 11)[:, :, :n]
+    for fn in ("ntt_mform", "intt_imform"):
+        want = np.asarray(getattr(mm, fn)(jnp.asarray(x)))
+        got = getattr(port, fn)(PortRing.from_planes(x))
+        np.testing.assert_array_equal(PortRing.to_planes(got).numpy(), want)
