@@ -1,5 +1,4 @@
-"""Jindo encoder: the Z_p <-> R_q bridge of the commit path (reference
-jindo/encoder.go).
+"""Jindo encoder: the Z_p <-> R_q bridge (reference jindo/encoder.go).
 
 Values are base-b digit-decomposed with the strided slot layout
 coeff[j*slots + i]; the randomized encoding adds p * (a discrete Gaussian
@@ -17,6 +16,8 @@ import numpy as np
 import torch
 
 from ..csprng import COSACSampler
+from ..fields import limb
+from ..rings.rns import RnsReconstructor
 from .params import Parameters
 
 
@@ -35,11 +36,16 @@ def _delta_inv(params: Parameters) -> list[float]:
 
 
 class Encoder:
-    def __init__(self, params: Parameters, seed: bytes | None = None):
+    def __init__(self, params: Parameters, seed: bytes | None = None,
+                 ring=None):
+        """``ring`` is ``params.ring_q`` on the device the plain encodes
+        run on (default: the parameters' own ring, on the CPU)."""
         if params.base >= 1 << 21:
             raise ValueError("the float64 digit ladder needs b < 2^21")
         self.params = params
         self.spec = params.spec
+        self.ring = params.ring_q if ring is None else ring
+        self.rns = RnsReconstructor(params.ring_q)
         self.cosac = COSACSampler(None if seed is None else seed + b"co")
         self.delta_inv = _delta_inv(params)
 
@@ -114,3 +120,35 @@ class Encoder:
         """Drift centres of CPU digit planes, as a flat numpy array for
         the host samplers."""
         return self.drift_centers(self.base_digits(values)).reshape(-1).numpy()
+
+    # -- plain encode and decode ----------------------------------------------
+
+    def encode(self, values: torch.Tensor) -> torch.Tensor:
+        """Plain digit planes [w, *batch, slots] -> NTT + MForm residues
+        [L, *batch, d] on the encoder's ring (reference encodeTo,
+        encoder.go:113-117)."""
+        ring = self.ring
+        coeffs = self.base_digits(values.to(ring.device))
+        return ring.ntt_mform(ring.embed_int64(coeffs))
+
+    def encode_scalars(self, ints: list[int]) -> torch.Tensor:
+        """Host ints -> one single-slot encode each: [L, len, d]."""
+        w = self.spec.w
+        vals = torch.zeros((w, len(ints), self.params.slots),
+                           dtype=torch.int64)
+        vals[:, :, 0] = limb.ints_to_digits([v % self.spec.p for v in ints], w)
+        return self.encode(vals)
+
+    def decode(self, poly: torch.Tensor) -> list[int]:
+        """Plain coefficient-domain residues [L, d] -> slots field values
+        (reference DecodeTo, encoder.go:204-219), in Python ints on the
+        host."""
+        p = self.params
+        coeffs = self.rns.reconstruct(poly)
+        out = []
+        for i in range(p.slots):
+            acc = 0
+            for j in reversed(range(p.exp)):
+                acc = (acc * p.base + coeffs[j * p.slots + i]) % self.spec.p
+            out.append(acc)
+        return out

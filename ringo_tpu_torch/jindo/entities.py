@@ -1,5 +1,5 @@
-"""Jindo protocol objects of the commit path: CommitKey, Commitment,
-Opening (reference jindo/entities.go).
+"""Jindo protocol objects: CommitKey, Commitment, Opening, Proof
+(reference jindo/entities.go).
 
 CommitKey expansion is bit-compatible with the reference: AES-CTR from the
 CRS seed, SampleN per (coefficient, level) in the same order
@@ -7,6 +7,9 @@ CRS seed, SampleN per (coefficient, level) in the same order
 ``commit_key_from_arrays`` builds one from the JAX package's digit-plane
 arrays instead, so the compute path can be checked apart from the
 AES/CRS path.
+
+Commitments and proofs are public: they keep the JAX package's layout,
+16-bit digit planes ``[2, L, ...]`` (int64, on the host), and its bytes.
 """
 
 from __future__ import annotations
@@ -16,6 +19,8 @@ import torch
 
 from .. import backend
 from ..csprng import UniformSampler
+from ..ops import mac_matmul
+from ..rings.rns import RnsRing
 from .params import Parameters
 
 
@@ -69,15 +74,38 @@ class CommitKey:
                                       p.mlwe_rank, d)
         self.Out = put(Out).reshape(p.ring_q_out.L, p.out_msis_rank,
                                     p.in_com_dcmp_len, d)
+        self._folded = None
+
+    def raw_bytes(self) -> bytes:
+        """What a transcript binds of the key: its CRS seed (reference
+        WriteRawTo, entities.go:75-77)."""
+        if self.crs is None:
+            raise ValueError(
+                "this CommitKey was built from arrays without its CRS bytes "
+                "and cannot bind a transcript: pass crs= to "
+                "commit_key_from_arrays")
+        return self.crs
+
+    def folded(self, ring_q, ring_q_out):
+        """The key as MAC planes (ops/mac_matmul.py), folded once per key
+        and shared by the provers and verifiers that hold it:
+        ((planes, corr) of [In | MLWE] over ring_q, (planes, corr) of Out
+        over ring_q_out)."""
+        if self._folded is None:
+            self._folded = (
+                mac_matmul.folded(ring_q, torch.cat([self.In, self.MLWE], dim=2)),
+                mac_matmul.folded(ring_q_out, self.Out))
+        return self._folded
 
 
 def commit_key_from_arrays(params: Parameters, In, MLWE, Out,
-                           device=None) -> CommitKey:
+                           device=None, crs: bytes | None = None) -> CommitKey:
     """A CommitKey from the JAX package's key arrays (digit planes
-    [2, L, ...] with 16-bit digits).  Its ``crs`` is None: it binds no
-    transcript."""
+    [2, L, ...] with 16-bit digits).  ``crs`` is the seed the arrays were
+    expanded from; without it the key commits but ``evaluate`` and
+    ``verify`` raise, because they bind the key by its CRS bytes."""
     ck = object.__new__(CommitKey)
-    ck.crs = None
+    ck.crs = None if crs is None else bytes(crs)
     ck.device = backend.resolve_device(device)
     res = lambda a: (np.asarray(a, dtype=np.uint64)[0]
                      | (np.asarray(a, dtype=np.uint64)[1] << np.uint64(16)))
@@ -93,20 +121,88 @@ class Commitment:
         self.params = params
         self.value = value
 
+    def raw_bytes(self) -> bytes:
+        return self.params.ring_q_out.to_bytes(self.value)
+
     def to_bytes(self) -> bytes:
         """Canonical bytes (the JAX package's ``Commitment.to_bytes``)."""
-        return self.params.ring_q_out.to_bytes(self.value)
+        return self.raw_bytes()
+
+    @classmethod
+    def from_bytes(cls, params: Parameters, data: bytes) -> "Commitment":
+        ring = params.ring_q_out
+        return cls(params, _planes_from_bytes(
+            data, (ring.L, params.out_msis_rank, ring.d)))
+
+
+def _planes_from_bytes(data: bytes, shape) -> torch.Tensor:
+    """Little-endian uint64 words -> digit planes [2, *shape]."""
+    if len(data) != 8 * int(np.prod(shape)):
+        raise ValueError("byte length mismatch")
+    return RnsRing.from_u64(np.frombuffer(data, dtype="<u8").reshape(shape))
 
 
 class Opening:
-    """Commitment opening (reference entities.go:102-137).  The
-    Encode/MLWE tensors are deterministic NTT images of the signed encode
+    """Commitment opening (reference entities.go:102-137).  Its Encode and
+    MLWE tensors are deterministic NTT images of the signed encode
     coefficients and noise, so the opening keeps those compact ``seeds``
-    (e_i64 [B, R, d], noise [B, K, d], int64, on the device) beside the
-    inner commitment ``in_commit`` (digit planes [2, LO, dcmp, d]).  The
-    materialiser that re-derives Encode/MLWE comes with evaluate."""
+    (e_i64 [B, R, d], noise [B, K, d], int64, on the prover's device)
+    beside the inner commitment ``in_commit`` (digit planes
+    [2, LO, dcmp, d]); the evaluating prover recomputes the tensors from
+    the seeds (embed, MForm, NTT), and batched evaluation streams the
+    seeds in chunks and never holds an opening's tensors whole."""
 
     def __init__(self, params: Parameters, in_commit: torch.Tensor, seeds):
         self.params = params
         self.in_commit = in_commit
         self.seeds = seeds
+
+
+class Proof:
+    """Evaluation proof (reference entities.go:139-179): digit planes on
+    the host,
+
+    in_commit    [2, LO, dcmp, d]  over ring_q_out
+    partial      [2, L, cols, d]   over ring_q
+    partial_mask [2, L, d]
+    encode       [2, L, rows, d]
+    mlwe         [2, L, mlweRank + inMSISRank, d]
+    """
+
+    FIELDS = ("in_commit", "partial", "partial_mask", "encode", "mlwe")
+
+    def __init__(self, in_commit, partial, partial_mask, encode, mlwe):
+        self.in_commit = in_commit
+        self.partial = partial
+        self.partial_mask = partial_mask
+        self.encode = encode
+        self.mlwe = mlwe
+
+    @staticmethod
+    def layout(params: Parameters) -> dict:
+        """Field -> (ring, residue shape [L, ...])."""
+        p = params
+        q, qo, d = p.ring_q, p.ring_q_out, p.degree
+        return {"in_commit": (qo, (qo.L, p.in_com_dcmp_len, d)),
+                "partial": (q, (q.L, p.cols, d)),
+                "partial_mask": (q, (q.L, d)),
+                "encode": (q, (q.L, p.rows, d)),
+                "mlwe": (q, (q.L, p.mlwe_rank + p.in_msis_rank, d))}
+
+    def to_bytes(self, params: Parameters) -> bytes:
+        lay = self.layout(params)
+        return b"".join(lay[f][0].to_bytes(getattr(self, f))
+                        for f in self.FIELDS)
+
+    @classmethod
+    def from_bytes(cls, params: Parameters, data: bytes) -> "Proof":
+        lay = cls.layout(params)
+        fields, off = [], 0
+        for f in cls.FIELDS:
+            shape = lay[f][1]
+            n = 8 * int(np.prod(shape))
+            fields.append(_planes_from_bytes(data[off:off + n], shape))
+            off += n
+        if off != len(data):
+            raise ValueError("proof byte length mismatch")
+        return cls(*fields)

@@ -1,4 +1,4 @@
-"""Jindo prover, commit path: ``Prover.commit`` and ``Prover.commit_many``.
+"""Jindo prover: ``Prover.commit`` / ``commit_many`` and ``Prover.evaluate``.
 
 Every (column, row) cell of the commitment matrix is encoded, sampled,
 NTT'd and MAC'd in whole-tensor operations (reference jindo/prover.go
@@ -15,8 +15,15 @@ keys and the mask-column noise, in exactly the JAX package's sampler order;
    (ops/mac_matmul.py), the inverse NTT;
 5. the exact CRT cutoff (rings/rns_device.py), outer NTT, MAC and cutoff.
 
-Commitments and openings equal the JAX package's bit for bit for the same
-CRS and seed (tests/test_torch_commit.py).
+``evaluate`` (reference jindo/prover.go:205-324) proves v_i(x) = y_i for
+the batch of committed vectors: the Fiat-Shamir oracle on the host, and on
+the device the challenge combine of the openings (re-encoded from their
+seeds in chunks: the NTT kernel), the partial products and the responses
+(two MACs each way) and the evaluations themselves (ops/horner.py).
+
+Commitments, openings, evaluations and proofs equal the JAX package's bit
+for bit for the same CRS and seed (tests/test_torch_commit.py,
+tests/test_torch_roundtrip.py).
 """
 
 from __future__ import annotations
@@ -31,9 +38,12 @@ from ..csprng import chacha
 from ..csprng.gaussian import TwinCDTDevice
 from ..fields import limb
 from ..ops import mac_matmul
+from ..ops.horner import HornerPlan
 from ..rings.rns_device import CrtShiftEmbed
+from .challenge import bind_statement, encode_challenges, left_vec, \
+    read_challenges
 from .encoder import Encoder
-from .entities import CommitKey, Commitment, Opening
+from .entities import CommitKey, Commitment, Opening, Proof
 from .params import Parameters
 
 
@@ -57,7 +67,7 @@ def sample_field_digits(spec, n: int, u: UniformSampler) -> torch.Tensor:
 
 
 class Prover:
-    # share of the card's free memory one commit-batch dispatch may use
+    # share of the card's free memory one batched dispatch may use
     MEM_SHARE = 0.5
 
     def __init__(self, params: Parameters, crs: bytes,
@@ -71,7 +81,8 @@ class Prover:
         self.spec = params.spec
         self.ring_q = p.ring_q.on(self.device)
         self.ring_q_out = p.ring_q_out.on(self.device)
-        self.ecd = Encoder(params, seed)
+        self.ecd = Encoder(params, seed, ring=self.ring_q)
+        self.horner = HornerPlan(params.spec)
         self.ck = CommitKey(params, crs, self.device) if ck is None else ck
         self.uniform = UniformSampler(None if seed is None else seed + b"u")
         self.rounded = RoundedGaussianSampler(
@@ -86,11 +97,8 @@ class Prover:
         # twin-table disagreements are ~2/128 of the lanes; the cap is ~1.6x
         # the expectation (>200 sigmas of slack), as in the JAX package
         self.FIX_CAP = max(4096, -(-B * R * d // 40960) * 1024)
-        pl_in = mac_matmul.fold_key(
-            self.ring_q, torch.cat([self.ck.In, self.ck.MLWE], dim=2))
-        pl_out = mac_matmul.fold_key(self.ring_q_out, self.ck.Out)
-        self._pk_in = (pl_in, mac_matmul.fold_corr(pl_in))
-        self._pk_out = (pl_out, mac_matmul.fold_corr(pl_out))
+        self._pk_in, self._pk_out = self.ck.folded(self.ring_q,
+                                                   self.ring_q_out)
 
     # ------------------------------------------------------------ host side
 
@@ -302,22 +310,28 @@ class Prover:
 
     # ---------------------------------------------------------------- commit
 
-    def _chunk(self, t: int) -> int:
-        """Commits per batch dispatch.  On the card: the free device
-        memory (``torch.cuda.mem_get_info``) times MEM_SHARE over an
-        estimate of one commit's live transients: ~40 B/lane for the
-        sampling front end, the int32/int64 copies around the NTTs, and
-        the float64 byte planes of the MAC."""
+    def _fit(self, t: int, per: int) -> int:
+        """How many of t items of ``per`` bytes of live transients one
+        dispatch takes: on the card, what fits MEM_SHARE of the free
+        device memory (``torch.cuda.mem_get_info``); all of them on the
+        CPU."""
         if self.device.type != "cuda":
             return t
+        free, _ = torch.cuda.mem_get_info(self.device)
+        return max(1, min(t, int(free * self.MEM_SHARE) // per))
+
+    def _chunk(self, t: int) -> int:
+        """Commits per batch dispatch, from an estimate of one commit's
+        live transients: ~40 B/lane for the sampling front end, the
+        int32/int64 copies around the NTTs, and the float64 byte planes of
+        the MAC."""
         p = self.params
         B, R, d = p.cols + 1, p.rows, p.degree
         K = p.mlwe_rank + p.in_msis_rank
         lanes = B * R * d
         per = (260 * lanes + 120 * B * K * d
                + 8 * self.ring_q.L * d * 4 * (p.rows + p.mlwe_rank) * B)
-        free, _ = torch.cuda.mem_get_info(self.device)
-        return max(1, min(t, int(free * self.MEM_SHARE) // per))
+        return self._fit(t, per)
 
     def _as_planes(self, v) -> torch.Tensor:
         if not isinstance(v, torch.Tensor):
@@ -373,3 +387,125 @@ class Prover:
                  Opening(p, in_commit=ic_planes[:, i],
                          seeds=(e_i64[i], noise[i])))
                 for i in range(t)]
+
+    # -------------------------------------------------------------- evaluate
+
+    def _seeds_encode(self, e_i64, noise):
+        """An opening's Encode / MLWE tensors from its seeds (embed, MForm,
+        NTT): signed [*lead, d] -> residues [L, *lead, d]."""
+        ring = self.ring_q
+        return (ring.ntt_mform(ring.embed_int64(e_i64)),
+                ring.ntt_mform(ring.embed_int64(noise)))
+
+    def _combine_seeds(self, e_all, noise_all, ics, bos, bqs, chunk=None):
+        """Batch-combine t openings with the challenge polynomials
+        (reference prover.go:230-268): sum_i b_i * opening_i in every
+        tensor.  e_all [t, B, R, d], noise_all [t, B, K, d] signed seeds;
+        ics [t, LO, dcmp, d] residues; bos [t, LO, d], bqs [t, L, d] the
+        challenges over the two rings.  Returns (ic [LO, dcmp, d], enc
+        [L, B, R, d], mlwe [L, B, K, d]).
+
+        The openings are re-encoded ``chunk`` at a time, one batched NTT
+        each for Encode and MLWE; the chunk comes from the free device
+        memory over ~64 B per lane and prime of one opening (the int64
+        embed, the int32 residues before and after the NTT, and the int64
+        temporaries of the Montgomery product and the sum).  Sums of
+        canonical residues are exact in int64 and mod-add is associative,
+        so any chunking gives the same tensors."""
+        ring, ring_out = self.ring_q, self.ring_q_out
+        t = e_all.shape[0]
+        if chunk is None:
+            lanes = e_all[0].numel() + noise_all[0].numel()
+            chunk = self._fit(t, 64 * ring.L * lanes)
+
+        def fold(rg, x, b):
+            """sum over the opening axis 1 of x * b, mod q."""
+            s = rg.mul_mont(x, b).to(torch.int64).sum(dim=1)
+            return (s % rg._col(rg.q, s.dim())).to(torch.int32)
+
+        acc = None
+        for c0 in range(0, t, chunk):
+            sl = slice(c0, c0 + chunk)
+            enc, ml = self._seeds_encode(e_all[sl], noise_all[sl])
+            bq = bqs[sl].transpose(0, 1)[:, :, None, None, :]
+            bo = bos[sl].transpose(0, 1)[:, :, None, :]
+            part = (fold(ring_out, ics[sl].transpose(0, 1), bo),
+                    fold(ring, enc, bq), fold(ring, ml, bq))
+            acc = part if acc is None else (
+                ring_out.add(acc[0], part[0]), ring.add(acc[1], part[1]),
+                ring.add(acc[2], part[2]))
+        return acc
+
+    def _partial(self, left_ecd, enc):
+        """Partial products sum_j left_j * Encode[:, j] (reference
+        prover.go:275-294), a MAC over the rows axis: left_ecd [L, R, d],
+        enc [L, B, R, d] -> [L, B, d]."""
+        lp = mac_matmul.folded(self.ring_q, left_ecd[:, None])
+        return mac_matmul.mod_mac(self.ring_q, lp, enc.transpose(1, 2))[:, 0]
+
+    def _response(self, chals, enc, mlwe):
+        """Responses: the mask column plus sum_j chal_j * column_j
+        (reference prover.go:296-316), MACs over the cols axis: chals
+        [L, cols, d] -> (resp_e [L, R, d], resp_m [L, K, d])."""
+        ring, cols = self.ring_q, self.params.cols
+        cp = mac_matmul.folded(ring, chals[:, None])
+        te = mac_matmul.mod_mac(ring, cp, enc[:, :cols])
+        tm = mac_matmul.mod_mac(ring, cp, mlwe[:, :cols])
+        return (ring.add(enc[:, cols], te[:, 0]),
+                ring.add(mlwe[:, cols], tm[:, 0]))
+
+    def _evaluations(self, x: int, vs: list) -> list[int]:
+        """y_i = v_i(x) on the device (reference prover.go:318-323), as
+        many polynomials at a time as fit: the Barrett products keep
+        about 150 int64 digit planes per coefficient alive."""
+        n = max(v.shape[1] for v in vs)
+        c = self._fit(len(vs), 150 * 8 * n)
+        out = []
+        for s in range(0, len(vs), c):
+            out.extend(self.horner.evaluate_many(vs[s:s + c], x, self.device))
+        return out
+
+    def evaluate(self, x: int, vs: list, coms: list[Commitment],
+                 opens: list[Opening]):
+        """Batched evaluation proof at x (reference prover.go:205-324).
+        vs: the committed plain digit planes [w, n_i] (numpy or torch, on
+        any device).  Returns (evaluations as Python ints, Proof)."""
+        p = self.params
+        if not (len(vs) == len(coms) == len(opens) == p.batch):
+            raise ValueError("batch size mismatch")
+        vs = [self._as_planes(v) for v in vs]
+        ring, ring_out = self.ring_q, self.ring_q_out
+        oracle, batch_bytes = bind_statement(p, self.ck, coms, x)
+
+        if p.batch > 1:
+            with record_function("jindo.evaluate.combine"):
+                ic, enc, mlwe = self._combine_seeds(
+                    torch.stack([o.seeds[0] for o in opens]),
+                    torch.stack([o.seeds[1] for o in opens]),
+                    torch.stack([ring_out.from_planes(o.in_commit)
+                                 for o in opens]).to(self.device),
+                    encode_challenges(p, ring_out, batch_bytes).transpose(0, 1),
+                    encode_challenges(p, ring, batch_bytes).transpose(0, 1))
+        else:
+            with record_function("jindo.evaluate.materialize"):
+                ic = ring_out.from_planes(opens[0].in_commit).to(self.device)
+                enc, mlwe = self._seeds_encode(*opens[0].seeds)
+
+        with record_function("jindo.evaluate.partial"):
+            left_ecd = self.ecd.encode_scalars(left_vec(p, x))
+            part = ring.to_planes(self._partial(left_ecd, enc)).cpu()
+        partial, partial_mask = part[:, :, :p.cols], part[:, :, p.cols]
+        with record_function("jindo.evaluate.oracle"):
+            for i in range(p.cols):
+                oracle.write(ring.to_bytes(partial[:, :, i]))
+            oracle.write(ring.to_bytes(partial_mask))
+            chals = encode_challenges(p, ring, read_challenges(oracle, p.cols))
+        with record_function("jindo.evaluate.response"):
+            resp_e, resp_m = self._response(chals, enc, mlwe)
+            pf = Proof(in_commit=ring_out.to_planes(ic).cpu(),
+                       partial=partial, partial_mask=partial_mask,
+                       encode=ring.to_planes(resp_e).cpu(),
+                       mlwe=ring.to_planes(resp_m).cpu())
+        with record_function("jindo.evaluate.horner"):
+            evals = self._evaluations(x, vs)
+        return evals, pf

@@ -75,6 +75,12 @@ def fold_corr(planes: torch.Tensor) -> torch.Tensor:
     return 128 * planes.sum(dim=3).to(torch.int64)
 
 
+def folded(ring, key: torch.Tensor):
+    """``(fold_key(key), fold_corr(...))``: what ``mod_mac`` takes."""
+    planes = fold_key(ring, key)
+    return planes, fold_corr(planes)
+
+
 def mod_mac(ring, key_planes, x: torch.Tensor) -> torch.Tensor:
     """Exact (key . x mod q) with the key folded by ``fold_key``.
 

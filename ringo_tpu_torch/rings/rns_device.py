@@ -29,6 +29,11 @@ def _digits_of(x: int, w: int) -> list[int]:
     return [(x >> (DIGIT_BITS * j)) & DIGIT_MASK for j in range(w)]
 
 
+def norm_cols_to_int(cols) -> int:
+    """Host combine of ``CrtShiftEmbed.norm_sq_cols`` output."""
+    return sum(int(c) << (DIGIT_BITS * k) for k, c in enumerate(cols))
+
+
 class CrtShiftEmbed:
     """Tables for ring_src -> (balanced >> shift) -> ring_dst."""
 
@@ -56,9 +61,11 @@ class CrtShiftEmbed:
             [[(1 << (DIGIT_BITS * i)) % q for q in ring_dst.primes]
              for i in range(W)], dtype=torch.int64, device=dev)
 
-    def _balanced_mag(self, res: torch.Tensor):
-        """res: plain residues [L, *lead] over ring_src.  Returns (mag
-        digits [W] of |v| >> shift (rounded toward -inf for v), is_neg)."""
+    def balanced_mag(self, res: torch.Tensor):
+        """res: plain residues [L, *lead] over ring_src.  Returns (mag,
+        is_neg): the balanced value v in [-Q/2, Q/2) as the W digit
+        tensors [*lead] of |v| >> shift (rounded toward -inf for v), and
+        its sign."""
         L, W = self.src.L, self.W
         r = res.to(torch.int64)
         q = self.src.q.reshape(L, *([1] * (r.dim() - 1)))
@@ -89,6 +96,35 @@ class CrtShiftEmbed:
         mag = [torch.where(is_neg, a, b) for a, b in zip(u_neg, dig)]
         return self._shift_right(mag), is_neg
 
+    def norm_sq_cols(self, polys) -> torch.Tensor:
+        """Exact sum of the squared balanced coefficients over ``polys``
+        (each plain residues [L, *lead] over ring_src) as 2W-1 int64
+        columns weighted by 2^(16k): the integer is sum_k cols[k] *
+        2^(16k) (``norm_cols_to_int`` on the host).  The exact l2 norm of
+        the verifier (reference jindo/verifier.go:262-282); |v|^2 drops
+        the sign, so the magnitude digits suffice.
+
+        int64 is exact here and float64 would not be: a digit product is
+        below 2^32, a plane pair sums fewer than 2^21 lanes, and a column
+        gathers at most W <= 16 pairs from each of at most four polys, so
+        every column stays below 2^32 * 2^21 * 2^4 * 2^2 = 2^59."""
+        W = self.W
+        if W > 16 or len(polys) > 4:
+            raise ValueError("norm_sq_cols: int64 columns could overflow")
+        acc = None
+        for poly in polys:
+            mag, _ = self.balanced_mag(poly)
+            m = torch.stack(mag).reshape(W, -1)
+            if m.shape[1] >= 1 << 21:
+                raise ValueError("norm_sq_cols: too many lanes for int64")
+            g = (m[:, None, :] * m[None, :, :]).sum(dim=2)     # [W, W]
+            acc = g if acc is None else acc + g
+        # column k gathers the anti-diagonal i + j = k
+        ar = torch.arange(W, device=acc.device)
+        k = (ar[:, None] + ar[None, :]).reshape(-1)
+        return torch.zeros(2 * W - 1, dtype=torch.int64, device=acc.device
+                           ).index_add_(0, k, acc.reshape(-1))
+
     def _shift_right(self, dig):
         W = self.W
         ds, b = divmod(self.shift, DIGIT_BITS)
@@ -107,7 +143,7 @@ class CrtShiftEmbed:
     def __call__(self, res: torch.Tensor) -> torch.Tensor:
         """Plain residues [L, *lead] over ring_src -> plain residues
         [LO, *lead] over ring_dst."""
-        mag, is_neg = self._balanced_mag(res)
+        mag, is_neg = self.balanced_mag(res)
         LO = self.dst.L
         nl = res.dim() - 1
         acc = None

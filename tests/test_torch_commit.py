@@ -108,6 +108,11 @@ def test_entry_points_need_an_explicit_cpu_device():
         tj.Prover(params, CRS, seed=SEED)
     with pytest.raises(RuntimeError):
         tj.CommitKey(params, CRS)
+    with pytest.raises(RuntimeError):
+        tj.Verifier(params, CRS)
+    ck = tj.CommitKey(params, CRS, device="cpu")
+    with pytest.raises(RuntimeError):
+        tj.Verifier(params, CRS, ck=ck)
 
 
 def write_fixture(path: str = FIXTURE) -> None:
