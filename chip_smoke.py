@@ -47,12 +47,20 @@
    memory; a tampered evaluation and a verifier of another CRS rejected;
    the big-field encode and embedding NTT on the card equal to the CPU),
    then first calls of mult at (13, ZP128) and PublicKey at (15, ZP880);
-8. the four circuits of ringo_tpu_torch/circuits.py at their test sizes:
+   then the bfv example (ringo_tpu_torch/examples/bfv.py: a BFV
+   ciphertext of the port's BGV switched into ZP240) at (13, ZP240) through
+   the example's ``setup``, timed as PublicKey, and the mult example's
+   ``main`` at (13, ZP128), one call that must verify; before them the BGV
+   phase: keygen, encrypt and decrypt at log_n = 13 on the card from a
+   fixed seed, key, (c0, c1) and error equal to the CPU path's, decryption
+   equal to the message, encrypt and decrypt timed;
+8. the five circuits of ringo_tpu_torch/circuits.py at their test sizes:
    proof bytes on the card equal the CPU's and the JAX-package fixture
    (buckler_n8.npz), each device's verifier accepts the other's proof.
 
 Any failure raises.  The line before the last is the kernel table as JSON
-(launches: the main paths' runs, the timed Buckler ones included); the
+(launches: the main paths' runs, the timed Buckler ones included: PublicKey
+and bfv); the
 last line is {"ok": true, "device": {...}}.  It needs the repository
 beside it and exits non-zero, printing no result, when CUDA is absent.
 """
@@ -768,10 +776,14 @@ def card_vs_fixtures(jindo, ZP255):
 # ----------------------------------------------------------- Buckler phases
 
 # (label, circuit of ringo_tpu_torch/circuits.py, field, log2 rank): the
-# timed full-size point, then the two first-call points
+# timed full-size point, the two first-call points, and the bfv example's
+# point (timed; compiled through ringo_tpu_torch/examples/bfv.py)
 BUCKLER_POINTS = [("PublicKey (13, ZP220)", "public_key", "ZP220", 13),
                   ("mult (13, ZP128)", "mult", "ZP128", 13),
-                  ("PublicKey (15, ZP880)", "public_key", "ZP880", 15)]
+                  ("PublicKey (15, ZP880)", "public_key", "ZP880", 15),
+                  ("bfv (13, ZP240)", "bfv", "ZP240", 13)]
+TIMED_POINTS = ("public_key", "bfv")
+EXAMPLE_SEED = 20261017
 
 
 def commit_ntt_shapes(p, t: int):
@@ -910,7 +922,15 @@ def buckler_phase(backend, point, checked: set, errs: dict, gen, rng,
     label, name, field, log_n = point
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    b = buckler_compile(name, field, log_n, "cuda")
+    if name == "bfv":
+        from ringo_tpu_torch.examples import bfv
+
+        b = bfv.setup(log_n, seed=EXAMPLE_SEED, device="cuda")
+        log(f"{label}: BGV keygen and encrypt {b['encrypt_s']:.3f} s, "
+            f"decrypt {b['decrypt_s']:.3f} s (the message came back), "
+            f"switch to p and the witness NTTs {b['inputs_s']:.3f} s")
+    else:
+        b = buckler_compile(name, field, log_n, "cuda")
     prv, vrf, a, pub = b["prv"], b["vrf"], b["assignment"], b["public"]
     p = prv.params
     compile_peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -945,7 +965,10 @@ def buckler_phase(backend, point, checked: set, errs: dict, gen, rng,
         raise AssertionError(f"{label}: verify rejected an honest proof")
     rec = dict(label=label, circuit=name, field=field, log_n=log_n,
                jindo_rank=p.rank, jindo_rows=p.rows, jindo_cols=p.cols,
-               jindo_L=p.ring_q.L, jindo_batch=p.batch, commit_batches=ts,
+               jindo_L=p.ring_q.L, jindo_LO=p.ring_q_out.L,
+               jindo_primes=list(p.ring_q.primes),
+               jindo_out_primes=list(p.ring_q_out.primes),
+               jindo_batch=p.batch, commit_batches=ts,
                embedding_rank=prv.poly_ring.rank, w=b["spec"].w,
                inputs_s=b["inputs_s"], compile_s=b["compile_s"],
                plans_s=b["plans_s"], jindo_key_s=b["jindo_key_s"],
@@ -1009,6 +1032,84 @@ def buckler_phase(backend, point, checked: set, errs: dict, gen, rng,
     return rec, b
 
 
+def bgv_phase(log_n: int = 13, reps: int = 3):
+    """BGV at the bfv example's parameters on the card: key, the first
+    encryption (c0, c1, e) and its decryption from a fixed seed equal the
+    CPU path's; the decryption is the message; then ``reps`` further
+    encryptions and decryptions timed on the host clock, each ending in a
+    synchronise, every decryption held to the message."""
+    import torch
+
+    from ringo_tpu_torch import circuits
+    from ringo_tpu_torch.schemes import BGV, BGVParams
+
+    n, t = 1 << log_n, circuits.BFV_T
+    m = np.random.default_rng(13).integers(0, t, n)
+    out = {}
+    for devname in ("cuda", "cpu"):
+        bgv = BGV(BGVParams(log_n, circuits.BFV_Q_BITS, t, device=devname),
+                  seed=b"chip-smoke bgv")
+        sk = bgv.gen_secret_key()
+        out[devname] = (bgv, sk, bgv.encrypt(sk, m))
+    (bgv, sk, ct), (bgv_h, sk_h, ct_h) = out["cuda"], out["cpu"]
+    if not torch.equal(sk.coeffs.cpu(), sk_h.coeffs):
+        raise AssertionError("BGV: the card's key differs from the CPU's")
+    for x, y, what in zip(ct, ct_h, ("c0", "c1", "e")):
+        if x.device.type != "cuda" or not torch.equal(x.cpu(), y):
+            raise AssertionError(f"BGV: the card's {what} differs from the CPU's")
+    for b, k, (c0, c1, _) in ((bgv, sk, ct), (bgv_h, sk_h, ct_h)):
+        if not np.array_equal(b.decrypt(k, c0, c1).numpy(), m):
+            raise AssertionError("BGV: decryption did not return the message")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    enc_s, dec_s = [], []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        c0, c1, _ = bgv.encrypt(sk, m)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        got = bgv.decrypt(sk, c0, c1)
+        torch.cuda.synchronize()
+        dec_s.append(time.perf_counter() - t1)
+        enc_s.append(t1 - t0)
+        if not np.array_equal(got.numpy(), m):
+            raise AssertionError("BGV: decryption did not return the message")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    rec = dict(log_n=log_n, primes=list(bgv.params.primes),
+               encrypt_s=enc_s, encrypt_median_s=statistics.median(enc_s),
+               decrypt_s=dec_s, decrypt_median_s=statistics.median(dec_s),
+               peak_gib=peak)
+    log(f"BGV (log_n {log_n}, {len(bgv.params.primes)} primes "
+        f"{bgv.params.primes[0]}..{bgv.params.primes[-1]}): key, c0, c1, e "
+        f"on the card equal the CPU path; decryptions return m; encrypt "
+        f"{enc_s} s, median {rec['encrypt_median_s']:.4f} s; decrypt "
+        f"{dec_s} s, median {rec['decrypt_median_s']:.4f} s; peak "
+        f"{peak:.3f} GiB")
+    return rec
+
+
+def mult_example_phase(backend, checked: set):
+    """The mult example's ``main`` at (13, ZP128) on the card, one call;
+    every NTT launch at a shape the mult point's checks held."""
+    from ringo_tpu_torch.examples import mult
+
+    backend.reset_launches()
+    with ntt_shapes_held(checked, "mult example"):
+        r = mult.main(13, seed=EXAMPLE_SEED, device="cuda")
+    launches = dict(backend.LAUNCHES)
+    if r["ok"] is not True:
+        raise AssertionError("mult example: the proof did not verify")
+    for k in ("ntt", "chacha", "twin"):
+        if launches[k] <= 0:
+            raise AssertionError(f"mult example: kernel {k} not launched")
+    log(f"mult example (13, ZP128): compile {r['compile_s']:.3f} s, prove "
+        f"{r['prove_s']:.3f} s, verify {r['verify_s']:.3f} s, verified; "
+        f"launches {launches}")
+    return dict(compile_s=r["compile_s"], prove_s=r["prove_s"],
+                verify_s=r["verify_s"], size_mb=r["size_mb"],
+                launches=launches)
+
+
 def bigfield_card_vs_cpu(b):
     """At the timed point: one randomised witness encode and one
     embedding-ring NTT -> INTT round trip on the card equal the CPU path."""
@@ -1045,7 +1146,7 @@ def bigfield_card_vs_cpu(b):
 
 
 def buckler_card_vs_cpu_and_fixture(checked: set, errs: dict, gen, rng):
-    """The four test circuits at their test sizes: proof bytes on the card
+    """The five test circuits at their test sizes: proof bytes on the card
     equal the port's on the CPU and the JAX-package fixture (digest,
     length, evaluations); each device's verifier accepts the other's
     proof."""
@@ -1133,6 +1234,8 @@ def main() -> int:
         card_vs_cpu(jindo, ZP255, batch)
     card_vs_fixtures(jindo, ZP255)
 
+    phase("BGV")
+    bgv_rec = bgv_phase()
     gen = torch.Generator(device="cpu").manual_seed(20)
     rng = np.random.default_rng(20)
     buckler_recs = []
@@ -1140,25 +1243,29 @@ def main() -> int:
         phase(f"Buckler {point[0]}")
         t0 = time.perf_counter()
         rec, b = buckler_phase(backend, point, checked, errs, gen, rng,
-                               timed_reps=3 if i == 0 else 0)
+                               timed_reps=3 if point[1] in TIMED_POINTS else 0)
         if i == 0:
             bigfield_card_vs_cpu(b)
         del b
         torch.cuda.empty_cache()
         rec["phase_s"] = time.perf_counter() - t0
         buckler_recs.append(rec)
+    phase("mult example")
+    mult_rec = mult_example_phase(backend, checked)
     phase("Buckler card vs CPU vs fixture")
     buckler_card_vs_cpu_and_fixture(checked, errs, gen, rng)
 
     # launches of the main paths, each read after a run that began with the
     # counts at 0: the commits, the evaluates and the verifies at N = 2^19,
-    # and the timed Buckler proves and verifies at (13, ZP220)
+    # and the timed Buckler proves and verifies (PublicKey and bfv at 2^13)
+    timed_recs = [rec for rec in buckler_recs if "prove_launches_total" in rec]
     for r in rows:
         r["max_abs_err"] = errs[r["kernel"]]
         r["launches"] = sum(rec[r["kernel"]] for rec in (
             slice_rec["launches"], rt_rec["evaluate_launches"],
-            rt_rec["verify_launches"], buckler_recs[0]["prove_launches_total"],
-            buckler_recs[0]["verify_launches_total"]))
+            rt_rec["verify_launches"],
+            *[rec["prove_launches_total"] for rec in timed_recs],
+            *[rec["verify_launches_total"] for rec in timed_recs]))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     table = {"kernels": [{k: r[k] for k in keys} for r in rows]}
@@ -1166,6 +1273,7 @@ def main() -> int:
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=smi, kernels=rows, slice=slice_rec,
                        roundtrip=rt_rec, batch=batch_rec, buckler=buckler_recs,
+                       bgv=bgv_rec, mult_example=mult_rec,
                        seconds=time.perf_counter() - t_start), f, indent=1)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)

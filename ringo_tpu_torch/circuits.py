@@ -12,6 +12,12 @@
   4 * rank and y = Aut_5(x): sum-check, two-norm and automorphism.
 * ``approx_inf_norm``: |x|_inf <= 8 by the modular Johnson-Lindenstrauss
   projection (second-round witnesses); it needs rank >= 2^11.
+* ``bfv``: a BFV ciphertext is well formed, c0 = -c1*s + Delta*m + e with
+  |m| < t and |e| <= N + t, after a modulus switch from the ciphertext
+  modulus q to the field p (the reference's examples/bfv): two NTT linear
+  constraints, one arithmetic constraint, two inf-norm decompositions.
+  The ciphertext comes from the port's BGV (schemes/bgv.py); only
+  integers cross into the ring.
 
 The circuit classes are written against a Buckler API passed in as
 ``bk`` (``Witness``, ``PublicWitness``, ``ArithmeticConstraint``,
@@ -33,8 +39,15 @@ CASES = {
     "mult": ("ZP128", 8),
     "sum_two_norm": ("ZP220", 8),
     "approx_inf_norm": ("ZP220", 11),
+    "bfv": ("ZP240", 8),
 }
 CRS = b"Buckler!"
+
+# the reference bfv example's scheme: t = 2^16 + 1, q of 4 x 60 bits (as
+# eight primes of 30 bits), the message 1, 2, 3, 4 in the first slots
+BFV_T = (1 << 16) + 1
+BFV_Q_BITS = [60, 60, 60, 60]
+BFV_MESSAGE = [1, 2, 3, 4]
 
 
 def seed_of(name: str) -> bytes:
@@ -112,8 +125,86 @@ def _classes(bk):
         def define(self, ctx):
             ctx.add_approx_inf_norm_constraint(self.x, 8)
 
+    class Ciphertext:
+        def __init__(self, plaintext_modulus: int, err_bound: int,
+                     delta: int):
+            self.ntt_checker = None
+            self.plaintext_modulus = plaintext_modulus
+            self.err_bound = err_bound
+            self.delta = delta
+            self.ciphertext_ntt = [bk.PublicWitness(), bk.PublicWitness()]
+            self.secret_key_ntt = bk.Witness()
+            self.message_ntt = bk.Witness()
+            self.message_coeffs = bk.Witness()
+            self.error_ntt = bk.Witness()
+            self.error_coeffs = bk.Witness()
+
+        def define(self, ctx):
+            ctx.add_linear_constraint(self.message_ntt, self.message_coeffs,
+                                      self.ntt_checker)
+            ctx.add_linear_constraint(self.error_ntt, self.error_coeffs,
+                                      self.ntt_checker)
+            c = bk.ArithmeticConstraint()        # c0 + c1*s - Delta*m - e = 0
+            c.add_term(1, self.ciphertext_ntt[0])
+            c.add_term(1, self.ciphertext_ntt[1], self.secret_key_ntt)
+            c.add_term(-self.delta, None, self.message_ntt)
+            c.add_term(-1, None, self.error_ntt)
+            ctx.add_arithmetic_constraint(c)
+            ctx.add_inf_norm_constraint(self.message_coeffs,
+                                        self.plaintext_modulus - 1)
+            ctx.add_inf_norm_constraint(self.error_coeffs, self.err_bound)
+
     return dict(public_key=PublicKey, mult=Mult, sum_two_norm=SumTwoNorm,
-                approx_inf_norm=ApproxInfNorm)
+                approx_inf_norm=ApproxInfNorm, bfv=Ciphertext)
+
+
+def _assignments(vals: dict, pub: dict):
+    """(assignment, public assignment) from the secret witnesses' ring
+    polynomials and the public witnesses' planes."""
+    secret = {k: v.coeffs for k, v in vals.items()}
+    assignment = types.SimpleNamespace(**secret, **pub)
+    public = types.SimpleNamespace(**{k: None for k in secret}, **pub)
+    return assignment, public
+
+
+def bfv_encrypt(log_n: int, seed: bytes, device):
+    """The bfv case's ciphertext: the reference example's BGV parameters
+    at degree 2^log_n, a key and an encryption of ``BFV_MESSAGE`` from
+    ``seed``, on ``device``.  Returns (bgv, sk, m, c0, c1)."""
+    from .schemes.bgv import BGV, BGVParams
+
+    bgv = BGV(BGVParams(log_n, BFV_Q_BITS, BFV_T, device=device), seed=seed)
+    sk = bgv.gen_secret_key()
+    m = np.zeros(bgv.params.n, dtype=np.int64)
+    m[:len(BFV_MESSAGE)] = BFV_MESSAGE
+    c0, c1, _ = bgv.encrypt(sk, m)
+    return bgv, sk, m, c0, c1
+
+
+def bfv_case(bk, ring, bgv, sk, m, c0, c1, checker_kw=None):
+    """(circuit, assignment, public assignment) proving that (c0, c1) is
+    a well-formed encryption of m under sk, over the ring's field
+    (examples/bfv.py:91-148): c0 and c1 switched from q to p, the
+    switched error recomputed, Delta = (t^-1 mod q) * p // q, the error
+    bound N + t."""
+    spec, n = ring.spec, ring.rank
+    p, t, q = spec.p, bgv.params.t, bgv.params.q
+    sk_ntt = ring.ntt(ring.from_ints([v % p for v in sk.coeffs.tolist()]))
+    m_big = ring.from_ints([(v if v <= t // 2 else v - t) % p
+                            for v in np.asarray(m).tolist()])
+    m_ntt = ring.ntt(m_big)
+    ct_ntt = [ring.ntt(ring.mod_switch_ints(
+        [v % q for v in bgv.rec.reconstruct(c)], q)) for c in (c0, c1)]
+    delta = pow(t, -1, q) * p // q
+    err_ntt = ring.sub(ring.add(ring.mul(ct_ntt[1], sk_ntt), ct_ntt[0]),
+                       ring.scalar_mul(m_ntt, delta))
+    circuit = _classes(bk)["bfv"](t, n + t, delta)
+    circuit.ntt_checker = bk.NTTChecker(spec, n, **(checker_kw or {}))
+    vals = dict(secret_key_ntt=sk_ntt, message_ntt=m_ntt,
+                message_coeffs=m_big, error_ntt=err_ntt,
+                error_coeffs=ring.intt(err_ntt))
+    return (circuit, *_assignments(
+        vals, dict(ciphertext_ntt=[c.coeffs for c in ct_ntt])))
 
 
 def build(name: str, bk, ring, seed: int = 0, checker_kw=None):
@@ -125,6 +216,10 @@ def build(name: str, bk, ring, seed: int = 0, checker_kw=None):
     spec, n = ring.spec, ring.rank
     p = spec.p
     rng = np.random.default_rng(seed)
+    if name == "bfv":
+        return bfv_case(bk, ring, *bfv_encrypt(n.bit_length() - 1,
+                                               rng.bytes(16), "cpu"),
+                        checker_kw)
     circuit = _classes(bk)[name]()
     kw = checker_kw or {}
     if name == "public_key":
@@ -161,7 +256,4 @@ def build(name: str, bk, ring, seed: int = 0, checker_kw=None):
         pub = {}
     else:
         raise ValueError(f"unknown circuit {name!r}")
-    secret = {k: v.coeffs for k, v in vals.items()}
-    assignment = types.SimpleNamespace(**secret, **pub)
-    public = types.SimpleNamespace(**{k: None for k in secret}, **pub)
-    return circuit, assignment, public
+    return (circuit, *_assignments(vals, pub))

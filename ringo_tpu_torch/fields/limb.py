@@ -97,6 +97,44 @@ def geq(a, b):
     return borrow == 0
 
 
+def cmp(a, b):
+    """3-way multi-digit unsigned compare: -1 / 0 / +1 as int64
+    (reference element Cmp)."""
+    return geq(a, b).to(torch.int64) - geq(b, a).to(torch.int64)
+
+
+def bit_len(a):
+    """Bit length of each element (reference element BitLen): position of
+    the highest set bit across the digit planes, 0 for zero."""
+    out = None
+    for j, d in enumerate(_unstack(a)):
+        bl = torch.zeros_like(d)
+        for b in range(DIGIT_BITS):
+            bl = bl + (d >= (1 << b)).to(torch.int64)
+        cand = torch.where(d > 0, bl + DIGIT_BITS * j, torch.zeros_like(bl))
+        out = cand if out is None else torch.maximum(out, cand)
+    return out
+
+
+def select(cond, a, b):
+    """cond ? a : b elementwise over the digit planes (reference element
+    Select)."""
+    return torch.where(cond, a, b)
+
+
+def halve(a, q):
+    """a / 2 mod q: add q to the odd values, then shift the w+1 digits
+    right by one bit (reference element Halve)."""
+    ad = _unstack(a)
+    qd = [d + torch.zeros_like(ad[0]) for d in _unstack(_as_tensor(q, a))]
+    bumped, carry = _add_carry(ad, qd)
+    odd = (ad[0] & 1) != 0
+    use = _select(odd, bumped, ad) + [torch.where(odd, carry,
+                                                  torch.zeros_like(carry))]
+    return torch.stack([(use[j] >> 1) | ((use[j + 1] & 1) << (DIGIT_BITS - 1))
+                        for j in range(len(ad))])
+
+
 def nonzero_idx(mask: torch.Tensor, size: int) -> torch.Tensor:
     """First ``size`` indices of the true lanes of a 1-D mask, padded with
     ``len(mask)``.  A cumsum and a binary search, so it never waits for
@@ -107,38 +145,36 @@ def nonzero_idx(mask: torch.Tensor, size: int) -> torch.Tensor:
 
 
 def mont_mul(a, b, q, qinv16):
-    """Montgomery product a*b*R^-1 mod q, R = 2^(16w), by CIOS.
+    """Montgomery product a*b*R^-1 mod q, R = 2^(16w).
 
     ``q``: [w, ...] broadcastable digits; ``qinv16``: -q^-1 mod 2^16 as an
-    int or a broadcastable tensor."""
-    ad = _unstack(a)
-    bd = _unstack(_as_tensor(b, a))
-    qd = _unstack(_as_tensor(q, a))
-    w = len(ad)
+    int or a broadcastable tensor.  The columns of a*b are summed lazily in
+    the int64 lanes (below 2w * 2^32 each), then column i is cleared by
+    m_i = t_i * qinv16 mod 2^16 with its carry moved up: the same
+    M = -a*b*q^-1 mod R as the reference's CIOS, so the same (a*b + M*q)/R,
+    brought into [0, q) by one conditional subtraction.  Each step works
+    on all w digits at once, so a product is O(w) tensor operations."""
+    bt = _as_tensor(b, a)
+    qt = _as_tensor(q, a)
+    w = a.shape[0]
     qinv = qinv16 if isinstance(qinv16, int) else _as_tensor(qinv16, a)
-    zero = ad[0] * bd[0] * 0
-    t = [zero for _ in range(w + 2)]
+    shape = torch.broadcast_shapes(a.shape[1:], bt.shape[1:], qt.shape[1:])
+    # the digit axis of b and q in front of the value dims they broadcast to
+    bt, qt = (x.reshape(w, *([1] * (len(shape) + 1 - x.dim())), *x.shape[1:])
+              for x in (bt, qt))
+    t = torch.zeros((2 * w + 1,) + shape, dtype=torch.int64, device=a.device)
     for i in range(w):
-        c = 0
-        for j in range(w):
-            s = t[j] + ad[j] * bd[i] + c
-            t[j] = s & DIGIT_MASK
-            c = s >> DIGIT_BITS
-        s = t[w] + c
-        t[w] = s & DIGIT_MASK
-        t[w + 1] = s >> DIGIT_BITS
-        m = (t[0] * qinv) & DIGIT_MASK
-        s = t[0] + m * qd[0]
+        t[i:i + w] += a[i] * bt
+    for i in range(w):
+        m = (t[i] * qinv) & DIGIT_MASK
+        t[i:i + w] += m * qt
+        t[i + 1] += t[i] >> DIGIT_BITS
+    out, c = [], 0
+    for j in range(w, 2 * w + 1):
+        s = t[j] + c
+        out.append(s & DIGIT_MASK)
         c = s >> DIGIT_BITS
-        for j in range(1, w):
-            s = t[j] + m * qd[j] + c
-            t[j - 1] = s & DIGIT_MASK
-            c = s >> DIGIT_BITS
-        s = t[w] + c
-        t[w - 1] = s & DIGIT_MASK
-        c = s >> DIGIT_BITS
-        t[w] = t[w + 1] + c
-    return torch.stack(_cond_sub_q(t[:w], t[w], qd))
+    return torch.stack(_cond_sub_q(out[:w], out[w], _unstack(qt)))
 
 
 def divmod_small(a, y: int):

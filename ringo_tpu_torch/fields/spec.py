@@ -7,12 +7,15 @@ are defined here.
 
 Digit layout: values are split into ``w`` digits of ``DIGIT_BITS`` (16)
 bits, little-endian.  The Montgomery radix is R = 2^(16*w).
+``find_modulus`` / ``derive_base_exp`` search and split moduli
+(fields/modulus.py is their command line).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 
 import numpy as np
 
@@ -52,6 +55,22 @@ def is_probable_prime(n: int, rounds: int = 64) -> bool:
         else:
             return False
     return True
+
+
+def derive_base_exp(p: int) -> tuple[int, int]:
+    """(b, k) with p = b^k + 1, k the largest power of two: the
+    reference's iterated integer square root (jindo/params.go:18-40)."""
+    base = p - 1
+    log_exp = 0
+    while True:
+        s = math.isqrt(base)
+        if s * s != base:
+            break
+        base = s
+        log_exp += 1
+    if base >= 1 << 64:
+        raise ValueError("modulus not jindo-friendly (base does not fit uint64)")
+    return base, 1 << log_exp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -153,6 +172,34 @@ class FieldSpec:
     def set_bytes(self, data: bytes) -> int:
         """Interpret big-endian bytes, reduced mod p (goff SetBytes)."""
         return int.from_bytes(data, "big") % self.p
+
+
+def find_modulus(bit_start: int, bit_end: int,
+                 base_bound: int = 1 << 25,
+                 max_rank: int = 1 << 30) -> FieldSpec:
+    """The first Jindo-friendly modulus p = b^k + 1 with a bit length in
+    [bit_start, bit_end): k a power of two, b <= base_bound,
+    2*max_rank | b^k, p prime (reference jindo-modulus/main.go:31-71)."""
+    max_log2 = math.ceil(math.log2(bit_end))
+    for logk in range(1, max_log2):
+        k = 1 << logk
+        b_start = int(math.floor(2 ** ((bit_start - 1) / k)))
+        b_end = int(math.ceil(2 ** (bit_end / k)))
+        if b_start > base_bound:
+            continue
+        for b in range(b_start, b_end + 1):
+            if b > base_bound:
+                break
+            bexp = b ** k
+            p = bexp + 1
+            if not (bit_start <= p.bit_length() < bit_end):
+                continue
+            if bexp % (2 * max_rank) != 0:
+                continue
+            if not is_probable_prime(p):
+                continue
+            return FieldSpec(p=p, b=b, k=k)
+    raise ValueError(f"no jindo-friendly modulus in [{bit_start}, {bit_end})")
 
 
 # The seven reference moduli (SURVEY.md §2.1 table; values match the generated

@@ -12,8 +12,18 @@ permutations such as the NTT-domain automorphism carry over:
 Twiddles are one table T of length N where stage m uses T[m:2m] (the
 reference's tw[m+i] layout, ntt.go:67-84,183-192).  The big-field engines
 (ops/bigntt.py, ops/bigntt_matmul.py) take their roots from here, the RNS
-matmul-NTT (ops/ntt_matmul.py) its bit reversal.  Counterpart of the host
-part of ``ringo_tpu.ops.ntt``.
+matmul-NTT (ops/ntt_matmul.py) its bit reversal.
+
+``ntt_fwd`` / ``ntt_inv`` are the stage engine: one Cooley-Tukey or
+Gentleman-Sande stage per step over the last axis of a tensor whose first
+axis is the plan's lead axis.  A plan brings its twiddles in Montgomery
+form (``tw``, ``twinv`` [c, n], ``ninv`` [c]) and its arithmetic (``mul``
+a Montgomery product, ``add``, ``sub``).  Two plans use it: ``NTTPlan``,
+on 16-bit digit planes [w, ..., n] of one field through ``limb.mont_mul``
+(c = w), and the RNS ring's plan (rings/rns.py), on int32 residues
+[L, ..., n] through ``RnsRing.mul_mont`` (c = L, one table per prime).
+Counterpart of ``ringo_tpu.ops.ntt``; equal outputs
+(tests/test_torch_rns_ntt.py).
 """
 
 from __future__ import annotations
@@ -21,7 +31,10 @@ from __future__ import annotations
 import functools
 
 import numpy as np
+import torch
 
+from .. import backend
+from ..fields import limb
 from ..fields.spec import FieldSpec
 
 
@@ -73,6 +86,74 @@ def _tables_host(p: int, b: int, k: int, n: int, negacyclic: bool,
                 twinv[m + i] = twinvref[i]
             m <<= 1
     return tw, twinv, spec.inverse(n)
+
+
+class NTTPlan:
+    """Twiddles of the size-n (nega)cyclic NTT over one field, as
+    Montgomery digit planes [w, n] on ``device`` (default: the card)."""
+
+    def __init__(self, spec: FieldSpec, n: int, negacyclic: bool,
+                 device=None):
+        if n & (n - 1):
+            raise ValueError("n must be a power of two")
+        if (spec.p - 1) % (2 * n) != 0:
+            raise ValueError("NTT not supported: 2n must divide p-1")
+        self.spec = spec
+        self.n = n
+        self.negacyclic = negacyclic
+        self.device = backend.resolve_device(device)
+        tw, twinv, ninv = _tables_host(spec.p, spec.b, spec.k, n, negacyclic)
+        R, p, w = spec.R, spec.p, spec.w
+        self.tw = limb.ints_to_digits([t * R % p for t in tw], w).to(self.device)
+        self.twinv = limb.ints_to_digits([t * R % p for t in twinv],
+                                         w).to(self.device)
+        self.ninv = limb.ints_to_digits([ninv * R % p], w)[:, 0].to(self.device)
+        self.q = limb.ints_to_digits([p], w).to(self.device)      # [w, 1]
+        self.qinv16 = spec.qinv16
+
+    def mul(self, a, b):
+        return limb.mont_mul(a, b, self.q, self.qinv16)
+
+    def add(self, a, b):
+        return limb.add(a, b, self.q)
+
+    def sub(self, a, b):
+        return limb.sub(a, b, self.q)
+
+
+def _stage_table(table: torch.Tensor, m: int, ndim: int) -> torch.Tensor:
+    """Stage m's twiddles table[:, m:2m] shaped to broadcast against one
+    half [c, *batch, m, t] (``ndim`` dims) of the stage's butterflies."""
+    return table[:, m:2 * m].reshape(table.shape[0], *([1] * (ndim - 3)),
+                                     m, 1)
+
+
+def ntt_fwd(plan, x: torch.Tensor) -> torch.Tensor:
+    """Forward NTT over the last axis; x shaped [c, *batch, n]."""
+    n, shape = plan.n, x.shape
+    m = 1
+    while m <= n // 2:
+        y = x.reshape(*shape[:-1], m, 2, n // (2 * m))
+        u, v = y[..., 0, :], y[..., 1, :]
+        vw = plan.mul(v, _stage_table(plan.tw, m, u.dim()))
+        x = torch.stack([plan.add(u, vw), plan.sub(u, vw)], dim=-2)
+        x = x.reshape(shape)
+        m <<= 1
+    return x
+
+
+def ntt_inv(plan, x: torch.Tensor) -> torch.Tensor:
+    """Inverse NTT over the last axis, with the 1/n scaling."""
+    n, shape = plan.n, x.shape
+    m = n // 2
+    while m >= 1:
+        y = x.reshape(*shape[:-1], m, 2, n // (2 * m))
+        u, v = y[..., 0, :], y[..., 1, :]
+        d = plan.mul(plan.sub(u, v), _stage_table(plan.twinv, m, u.dim()))
+        x = torch.stack([plan.add(u, v), d], dim=-2).reshape(shape)
+        m >>= 1
+    ninv = plan.ninv.reshape(plan.ninv.shape[0], *([1] * (x.dim() - 1)))
+    return plan.mul(x, ninv)
 
 
 def aut_ntt_permutation(n: int, idx: int) -> np.ndarray:

@@ -1,11 +1,13 @@
-"""Where the time of a Jindo commit, evaluate and verify, and of a Buckler
-prove and verify, goes on the card.
+"""Where the time of a Jindo commit, evaluate and verify, of a Buckler
+prove and verify, and of a BGV encryption goes on the card.
 
     python -m ringo_tpu_torch.profile_commit [--out DIR]
 
-Builds the ZP255 prover and verifier at N = 2^19 and the Buckler PublicKey
-circuit at (N = 2^13, ZP220) on the card and, for each of ``commit``,
-``evaluate``, ``verify``, ``buckler_prove`` and ``buckler_verify``: calls it
+Builds the ZP255 prover and verifier at N = 2^19, the Buckler PublicKey
+circuit at (N = 2^13, ZP220) and the bfv example at (N = 2^13, ZP240,
+examples/bfv.py, whose BGV encrypts at log_n = 13) on the card and, for
+each of ``commit``, ``evaluate``, ``verify``, ``buckler_prove``,
+``buckler_verify``, ``bfv_prove``, ``bfv_verify`` and ``bgv_encrypt``: calls it
 once to warm up, times three calls on the host clock (each ending in a
 synchronise), then traces one call with ``torch.profiler`` (CPU and CUDA).
 Prints the host and device time of each span of the call (``jindo.<phase>.*``;
@@ -33,12 +35,16 @@ import torch
 
 LOG_N = 19  # the Jindo main path's size
 BUCKLER_LOG_N = 13  # the Buckler PublicKey circuit's, over ZP220
-PHASES = ("commit", "evaluate", "verify", "buckler_prove", "buckler_verify")
+PHASES = ("commit", "evaluate", "verify", "buckler_prove", "buckler_verify",
+          "bfv_prove", "bfv_verify", "bgv_encrypt")
 # the spans each phase reports, by name prefix
 SPANS = {"commit": ("jindo.commit.",), "evaluate": ("jindo.evaluate.",),
          "verify": ("jindo.verify.",),
          "buckler_prove": ("buckler.prove.", "jindo."),
-         "buckler_verify": ("buckler.verify.", "jindo.verify.")}
+         "buckler_verify": ("buckler.verify.", "jindo.verify."),
+         "bfv_prove": ("buckler.prove.", "jindo."),
+         "bfv_verify": ("buckler.verify.", "jindo.verify."),
+         "bgv_encrypt": ()}
 
 
 def _union_us(intervals) -> float:
@@ -113,6 +119,7 @@ def main(argv=None) -> int:
         print("profile_commit: CUDA is not available", file=sys.stderr)
         return 2
     from . import backend, buckler, circuits, jindo
+    from .examples import bfv as bfv_example
     from .fields import ZP220, ZP255
     from .rings.bigring import CyclotomicRing
 
@@ -146,10 +153,21 @@ def main(argv=None) -> int:
         if bvrf.verify(pub, bpf) is not True:
             raise AssertionError("Buckler verify rejected an honest proof")
 
+    bfv = bfv_example.setup(BUCKLER_LOG_N, seed=1, device="cuda")
+    bfv_pf = bfv["prv"].prove(bfv["assignment"])
+
+    def bfv_verify():
+        if bfv["vrf"].verify(bfv["public"], bfv_pf) is not True:
+            raise AssertionError("bfv verify rejected an honest proof")
+
     calls = dict(commit=lambda: prv.commit(v),
                  evaluate=lambda: prv.evaluate(x, [v], [com], [op]),
                  verify=verify, buckler_prove=lambda: bprv.prove(a),
-                 buckler_verify=buckler_verify)
+                 buckler_verify=buckler_verify,
+                 bfv_prove=lambda: bfv["prv"].prove(bfv["assignment"]),
+                 bfv_verify=bfv_verify,
+                 bgv_encrypt=lambda: bfv["bgv"].encrypt(bfv["secret_key"],
+                                                        bfv["message"]))
     os.makedirs(args.out, exist_ok=True)
     traces = dict(commit=os.path.join(args.out, "profile_commit_trace.json"))
     rec = dict(card=torch.cuda.get_device_name(0), log_n=LOG_N,
@@ -167,7 +185,8 @@ def main(argv=None) -> int:
         r = rec[phase]
         print(json.dumps(dict(
             phase=phase, card=rec["card"],
-            log_n=BUCKLER_LOG_N if phase.startswith("buckler") else LOG_N,
+            log_n=LOG_N if phase in ("commit", "evaluate", "verify")
+            else BUCKLER_LOG_N,
             **{k: r[k] for k in ("median_s", "traced_s", "device_busy_ms",
                                  "device_idle_share", "device_ops",
                                  "peak_mem_gib", "launches")})))

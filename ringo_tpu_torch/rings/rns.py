@@ -11,7 +11,9 @@ layout ``[2, L, *batch, d]`` (16-bit digits): ``to_planes`` /
 
 ``ntt_mform`` / ``intt_imform`` run the matmul NTT (ops/ntt_matmul.py):
 the CUDA kernel for every row count on the card, the plain version on the
-CPU.
+CPU; they serve d = 256.  ``ntt`` / ``intt`` run the stage engine
+(ops/ntt.py) at any degree, with int64 butterflies through ``mul_mont``
+(the BGV ring, schemes/bgv.py).
 """
 
 from __future__ import annotations
@@ -20,19 +22,25 @@ import numpy as np
 import torch
 
 from ..fields.spec import is_probable_prime
+from ..ops import ntt as nttmod
 
 R_MONT = 1 << 32  # Montgomery radix of the two-digit residues
 
 
-def ntt_friendly_primes(bits: int, nth_root: int, count: int) -> list[int]:
-    """Next ``count`` primes q = 2^bits + i*nth_root + 1, ascending
-    (lattigo NTTFriendlyPrimesGenerator.NextUpstreamPrimes)."""
+def ntt_friendly_primes(bits: int, nth_root: int, count: int,
+                        upstream: bool = True) -> list[int]:
+    """Next ``count`` primes q = 2^bits +/- i*nth_root + 1 with
+    q = 1 mod nth_root, ascending upstream, descending otherwise (lattigo
+    NTTFriendlyPrimesGenerator semantics)."""
     out = []
+    step = nth_root if upstream else -nth_root
     q = (1 << bits) + 1
     while len(out) < count:
         if q > 3 and is_probable_prime(q):
             out.append(q)
-        q += nth_root
+        q += step
+        if q < nth_root:
+            raise ValueError("prime search exhausted")
     return out
 
 
@@ -62,7 +70,10 @@ class RnsRing:
         self.q = torch.tensor(primes, dtype=torch.int64, device=self.device)
         self.rinv = torch.tensor([pow(R_MONT, -1, p) for p in primes],
                                  dtype=torch.int64, device=self.device)
+        self.r2 = torch.tensor([R_MONT * R_MONT % p for p in primes],
+                               dtype=torch.int64, device=self.device)
         self._mm = None
+        self._stage = None
 
     def on(self, device) -> "RnsRing":
         """This ring with its tables on ``device``."""
@@ -146,6 +157,27 @@ class RnsRing:
         q = self._col(self.q, s.dim())
         return (s % q * self._col(self.rinv, s.dim()) % q).to(torch.int32)
 
+    def neg(self, a: torch.Tensor) -> torch.Tensor:
+        s = a.to(torch.int64)
+        q = self._col(self.q, s.dim())
+        return torch.where(s == 0, s, q - s).to(torch.int32)
+
+    def mform(self, a: torch.Tensor) -> torch.Tensor:
+        """a * R mod q (lattigo MForm)."""
+        return self.mul_mont(a, self._col(self.r2, a.dim()))
+
+    def imform(self, a: torch.Tensor) -> torch.Tensor:
+        """a * R^-1 mod q (lattigo IMForm)."""
+        return self.mul_mont(a, torch.ones_like(a))
+
+    def mul_mont_add(self, a, b, c) -> torch.Tensor:
+        """c + a*b*R^-1 (a in Montgomery form)."""
+        return self.add(c, self.mul_mont(a, b))
+
+    def mul_mont_sub(self, c, a, b) -> torch.Tensor:
+        """c - a*b*R^-1 (a in Montgomery form)."""
+        return self.sub(c, self.mul_mont(a, b))
+
     def scalar_rns_mont(self, value: int) -> torch.Tensor:
         """An integer scalar as per-prime Montgomery residues
         value * R mod q_l, int64 [L] on the ring's device."""
@@ -164,6 +196,20 @@ class RnsRing:
             self._mm = MatmulNTT(self)
         return self._mm
 
+    def _stage_plan(self) -> "_RnsStagePlan":
+        if self._stage is None:
+            self._stage = _RnsStagePlan(self)
+        return self._stage
+
+    def ntt(self, a: torch.Tensor) -> torch.Tensor:
+        """Negacyclic NTT of plain residues [L, *batch, d] by the stage
+        engine: bit-reversed evaluations, the reference's order."""
+        return nttmod.ntt_fwd(self._stage_plan(), a)
+
+    def intt(self, a: torch.Tensor) -> torch.Tensor:
+        """Inverse of ``ntt``, with the 1/d scaling."""
+        return nttmod.ntt_inv(self._stage_plan(), a)
+
     def ntt_mform(self, a: torch.Tensor) -> torch.Tensor:
         """ntt(mform(a)) for plain residues [L, *lead, d]."""
         return self._matmul_ntt().ntt_mform(a)
@@ -171,6 +217,26 @@ class RnsRing:
     def intt_imform(self, a: torch.Tensor) -> torch.Tensor:
         """intt(imform(a)) for NTT/Montgomery residues [L, *lead, d]."""
         return self._matmul_ntt().intt_imform(a)
+
+
+class _RnsStagePlan:
+    """The RNS ring's plan of the stage engine (ops/ntt.py): per-prime
+    twiddles in Montgomery form [L, d], ``mul`` the ring's reduce-first
+    ``mul_mont``, so every product stays below 2^62 in int64."""
+
+    def __init__(self, ring: RnsRing):
+        d = ring.d
+        self.n = d
+        self.mul, self.add, self.sub = ring.mul_mont, ring.add, ring.sub
+        tw, twinv, ninv = [], [], []
+        for p in ring.primes:
+            # FieldSpec only serves the root search; b and k are placeholders
+            t, ti, nv = nttmod._tables_host(p, p - 1, 1, d, True)
+            tw.append([x * R_MONT % p for x in t])
+            twinv.append([x * R_MONT % p for x in ti])
+            ninv.append(nv * R_MONT % p)
+        mk = lambda v: torch.tensor(v, dtype=torch.int32, device=ring.device)
+        self.tw, self.twinv, self.ninv = mk(tw), mk(twinv), mk(ninv)
 
 
 class RnsReconstructor:
@@ -192,3 +258,10 @@ class RnsReconstructor:
             acc = sum(r * g for r, g in zip(col, self.gad)) % Q
             out.append(acc - Q if acc >= Q >> 1 else acc)
         return out
+
+    def set_bigints(self, values) -> torch.Tensor:
+        """Python ints -> plain residues [L, len(values)] on the ring's
+        device (reference jindo/rns.go setBigCoeffTo)."""
+        rg = self.ring
+        res = [[int(v) % p for v in values] for p in rg.primes]
+        return torch.tensor(res, dtype=torch.int32, device=rg.device)

@@ -18,7 +18,12 @@ tests/test_torch_buckler_constraints.py and tests/test_torch_buckler_approx.py
 No test here compiles the JAX package's Buckler prover or verifier but
 the slow one, which re-derives the fixture.  Rewrite the fixture with
 
-    JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_buckler.py --write-fixture
+    XLA_FLAGS=--xla_cpu_max_isa=SSE4_2 JAX_PLATFORMS=cpu PYTHONPATH=. \
+        python tests/test_torch_buckler.py --write-fixture [NAME ...]
+
+(every circuit without a NAME; the records of the others stay).  The flag
+keeps XLA:CPU from contracting float64 multiply-adds into FMA
+(torch_buckler_cases.NO_FMA says why); the slow test needs it too.
 """
 
 import sys
@@ -79,15 +84,18 @@ def test_malformed_proof_bytes_raise():
 @pytest.mark.slow
 def test_fixture_is_the_jax_package_output():
     """Re-derive every circuit's proof through the JAX package's jax
-    backend (minutes of compile on the CPU) and hold the stored fixture
-    to it, so the fixture cannot drift from the reference."""
+    backend (minutes of compile on the CPU; run with
+    XLA_FLAGS=--xla_cpu_max_isa=SSE4_2) and hold the stored fixture to it,
+    so the fixture cannot drift from the reference."""
     fx = np.load(cases.FIXTURE)
     for name in cases.NAMES:
         cases.check_against_fixture(fx, name, *cases.jax_proof(name))
 
 
 if __name__ == "__main__":
-    if sys.argv[1:] != ["--write-fixture"]:
-        sys.exit("usage: python tests/test_torch_buckler.py --write-fixture")
-    cases.write_fixture()
-    print("wrote", cases.FIXTURE)
+    names = sys.argv[2:] or cases.NAMES
+    if sys.argv[1:2] != ["--write-fixture"] or set(names) - set(cases.NAMES):
+        sys.exit("usage: python tests/test_torch_buckler.py --write-fixture "
+                 f"[NAME ...]  (NAME in {', '.join(cases.NAMES)}; default all)")
+    cases.write_fixture(names=names)
+    print("wrote", ", ".join(names), "into", cases.FIXTURE)

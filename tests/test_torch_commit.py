@@ -125,6 +125,14 @@ def test_entry_points_need_an_explicit_cpu_device():
         buckler.compile_circuit(PORT_ZP220, 64, circuit, CRS)
     with pytest.raises(RuntimeError):
         buckler.NTTChecker(PORT_ZP220, 64)
+    from ringo_tpu_torch.fields import FieldOps
+    from ringo_tpu_torch.ops.ntt import NTTPlan
+    from ringo_tpu_torch.schemes import BGVParams
+    for make in (lambda: BGVParams(8, [60, 60, 60, 60], 65537),
+                 lambda: FieldOps(PORT_ZP220),
+                 lambda: NTTPlan(PORT_ZP220, 64, True)):
+        with pytest.raises(RuntimeError):
+            make()
 
 
 def write_fixture(path: str = FIXTURE) -> None:

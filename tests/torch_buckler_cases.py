@@ -87,13 +87,34 @@ def ref_numpy_proof(name: str) -> bytes:
     return r["prv"].prove(r["assignment"]).to_bytes(r["params"])
 
 
+# XLA:CPU contracts float64 multiply-adds into FMA where the CPU has it:
+# the Jindo drift centres (ringo_tpu/jindo/encoder.py drift_centers) then
+# differ by one ulp in about a quarter of the lanes, and at the bfv case's
+# 43 commitments a Gaussian sample flips.  The port, the JAX package's
+# numpy backend and the Go reference on amd64 round every product and sum
+# apart, and so does XLA:CPU without FMA instructions: the fixture is
+# written with this flag in XLA_FLAGS.
+NO_FMA = "--xla_cpu_max_isa=SSE4_2"
+
+
 def jax_proof(name: str) -> tuple[bytes, list[int]]:
     """The JAX package's proof bytes and evaluations under its jax backend
     (on the CPU: minutes of compile per circuit), from the reference's
-    np.uint32 plain planes."""
+    np.uint32 plain planes.  Needs ``NO_FMA`` in XLA_FLAGS.  Buckler's
+    stage programs (its batched encodes and the fused round 3) run op by
+    op: they are exact integer arithmetic, so the bytes are the jitted
+    programs' (the four earlier records were written jitted and are
+    reproduced), and XLA:CPU took hours to execute the fused round 3 of
+    the bfv case's 35 arithmetic constraints."""
+    if NO_FMA not in os.environ.get("XLA_FLAGS", ""):
+        raise RuntimeError(f"set XLA_FLAGS={NO_FMA} before JAX starts")
+    from ringo_tpu.buckler import prover as ref_prover
+
     field, log_n = circuits.CASES[name]
     spec, n = getattr(ref_fields, field), 1 << log_n
     backend.use("jax")
+    stage_jit = ref_prover.Prover._stage_jit
+    ref_prover.Prover._stage_jit = lambda self, fn: fn
     try:
         ring = RefCyclotomicRing(spec, n, plain=True)
         c, a, _ = circuits.build(name, ref_bk, ring)
@@ -102,6 +123,7 @@ def jax_proof(name: str) -> tuple[bytes, list[int]]:
         pf = prv.prove(a)
         return pf.to_bytes(prv.params), [int(e) for e in pf.evals]
     finally:
+        ref_prover.Prover._stage_jit = stage_jit
         backend.use("numpy")
 
 
@@ -123,10 +145,12 @@ def fixture_record(name: str, data: bytes, evals: list[int]) -> dict:
                 b"".join(spec.marshal(e) for e in evals), np.uint8)}
 
 
-def write_fixture(path: str = FIXTURE) -> None:
-    """Rewrite the golden fixture from the JAX package (jax backend)."""
-    rec = {"crs": np.frombuffer(circuits.CRS, np.uint8)}
-    for name in NAMES:
+def write_fixture(path: str = FIXTURE, names=NAMES) -> None:
+    """Write the records of ``names`` into the golden fixture from the JAX
+    package (jax backend); the fixture's other records stay as they are."""
+    rec = dict(np.load(path)) if os.path.exists(path) else {}
+    rec["crs"] = np.frombuffer(circuits.CRS, np.uint8)
+    for name in names:
         rec.update(fixture_record(name, *jax_proof(name)))
     np.savez_compressed(path, **rec)
 
