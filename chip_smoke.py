@@ -33,6 +33,19 @@
 5. batch phase: ``new_parameters(ZP255, 2^19, 2)``, ``commit_many`` of two,
    ``evaluate``, ``verify`` (must accept, and reject a swapped pair), with
    peak memory;
+5a. parallel phase (ringo_tpu_torch/parallel over NCCL at world size 1, a
+   dp x tp x sp mesh of one card; every collective runs): the sharded
+   commit core on the batch parameters for t = 2 host-made inputs equal
+   to ``raw_stages()["commit_core"]`` per item; a mesh-attached prover
+   and verifier with the batch phase's seed and key, whose commitments
+   and proof bytes equal the batch phase's (accepted, a swapped pair
+   rejected); the four-step big-field NTT at rank 2^15 on ZP220 equal to
+   the unsharded ring's ``ntt`` (in its engine order) and inverted by
+   ``inv``; after the PublicKey Buckler phase, a mesh-attached Buckler
+   prover of the same seed (embedding NTTs on the four-step) whose proof
+   bytes equal that phase's first proof, accepted by a mesh-attached
+   verifier.  One warm call of each, timed; its kernel launches join the
+   kernel table's;
 6. the card against the port's CPU plain path at N = 2^13 (commitments,
    evaluations and proof bytes equal for t = 1 and a batch of 2; each
    device's verifier accepts the other's proof) and against the golden
@@ -60,7 +73,7 @@
 
 Any failure raises.  The line before the last is the kernel table as JSON
 (launches: the main paths' runs, the timed Buckler ones included: PublicKey
-and bfv); the
+and bfv, and the parallel phase's sharded runs); the
 last line is {"ok": true, "device": {...}}.  It needs the repository
 beside it and exits non-zero, printing no result, when CUDA is absent.
 """
@@ -404,7 +417,11 @@ def kernel_phase(params, params_batch):
     ntt_row["roundtrip"] = []
     for pp in (params, params_batch):
         rings = {"ring_q": pp.ring_q.on(dev), "ring_q_out": pp.ring_q_out.on(dev)}
-        for label, which, way, n in roundtrip_ntt_shapes(pp):
+        # the commits of the batch parameters, single and as a batch (the
+        # parallel phase's sharded commit core and its reference)
+        extra = (commit_ntt_shapes(pp, 1) + commit_ntt_shapes(pp, pp.batch)
+                 if pp.batch > 1 else [])
+        for label, which, way, n in roundtrip_ntt_shapes(pp) + extra:
             rg = rings[which]
             mm = rg._matmul_ntt()
             tab = getattr(mm, way)
@@ -699,9 +716,13 @@ def batch_phase(backend, jindo, params, checked):
         f"swapped commitments rejected; peak device memory commit_many "
         f"{peak_commit:.3f} GiB, evaluate {peak_ev:.3f} GiB, verify "
         f"{peak_vf:.3f} GiB; launches {launches}")
-    return dict(peak_commit_gib=peak_commit, peak_evaluate_gib=peak_ev,
-                peak_verify_gib=peak_vf, first_evaluate_s=ev_s[0],
-                first_verify_s=vf_s[0], launches=launches)
+    rec = dict(peak_commit_gib=peak_commit, peak_evaluate_gib=peak_ev,
+               peak_verify_gib=peak_vf, first_evaluate_s=ev_s[0],
+               first_verify_s=vf_s[0], launches=launches)
+    # what the parallel phase holds its sharded round trip to
+    held = dict(ck=prv.ck, vs=vs, x=x, ys=ys, coms=[c.to_bytes() for c in coms],
+                proof=pf.to_bytes(params))
+    return rec, held
 
 
 def card_vs_cpu(jindo, ZP255, batch: int):
@@ -788,8 +809,8 @@ EXAMPLE_SEED = 20261017
 
 def commit_ntt_shapes(p, t: int):
     """(label, ring attribute, direction, rows) of the six NTT launches of
-    one ``commit_many`` chunk of t commitments (jindo/prover.py _inner,
-    _outer)."""
+    one ``commit_many`` chunk of t commitments (jindo/stages.py
+    ``encode_mac``, ``outer_mac``, ``finalize``)."""
     B, R = p.cols + 1, p.rows
     K, J = p.mlwe_rank + p.in_msis_rank, p.in_msis_rank
     return [(f"commit t={t} encode ntt", "ring_q", "fwd", t * B * R),
@@ -963,6 +984,7 @@ def buckler_phase(backend, point, checked: set, errs: dict, gen, rng,
     first_verify_peak = torch.cuda.max_memory_allocated() / 2 ** 30
     if ok is not True:
         raise AssertionError(f"{label}: verify rejected an honest proof")
+    b["first_proof"] = pf.to_bytes(p)     # a fresh prover's, from the seed
     rec = dict(label=label, circuit=name, field=field, log_n=log_n,
                jindo_rank=p.rank, jindo_rows=p.rows, jindo_cols=p.cols,
                jindo_L=p.ring_q.L, jindo_LO=p.ring_q_out.L,
@@ -1190,8 +1212,177 @@ def buckler_card_vs_cpu_and_fixture(checked: set, errs: dict, gen, rng):
             f"({len(data)} proof bytes); each verifier accepts the other's")
 
 
+# ------------------------------------------------------------ parallel phase
+
+def warm_s(fn):
+    """(result, host-clock seconds of one call ending in a synchronise)."""
+    out, (s,), _ = timed(fn, reps=1)
+    return out, s
+
+
+def parallel_start():
+    """An NCCL process group of world size 1 (a FileStore under
+    chiprun_out/) and a dp x tp x sp mesh of one card."""
+    from ringo_tpu_torch import parallel
+
+    os.makedirs(OUT_DIR, exist_ok=True)
+    store = os.path.join(OUT_DIR, "nccl_store")
+    if os.path.exists(store):
+        os.remove(store)
+    parallel.init_multihost(f"file://{store}", 1, 0, device="cuda")
+    mesh = parallel.make_mesh(1, device="cuda")
+    log(f"NCCL world of 1, mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}")
+    return mesh
+
+
+def parallel_phase(backend, jindo, params, checked, held, mesh):
+    """The multi-device layer over NCCL at world size 1, on the batch
+    phase's parameters and key (ZP255, N = 2^19, batch 2): the sharded
+    commit core on t = 2 host-made inputs equal to ``commit_core`` per
+    item; a mesh-attached prover and verifier (the batch phase's seed)
+    whose commitments and proof bytes equal the batch phase's, accepted,
+    a swapped pair rejected; the four-step big-field NTT at rank 2^15 on
+    ZP220 equal to the unsharded ring's ``ntt`` and inverted by ``inv``.
+    One warm call each, timed; the launches of the sharded runs."""
+    import torch
+
+    from ringo_tpu_torch import parallel
+    from ringo_tpu_torch.entry import example_inputs
+    from ringo_tpu_torch.fields import ZP220
+    from ringo_tpu_torch.rings.bigring import CyclicRing
+
+    rec, launches = {}, {k: 0 for k in backend.KERNELS}
+
+    def count(fn):
+        backend.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        for k, n in backend.LAUNCHES.items():
+            launches[k] += n
+        return out
+
+    prv = jindo.Prover(params, CRS, seed=SEED, device="cuda", ck=held["ck"])
+    e, noise = (torch.from_numpy(a).to("cuda")
+                for a in example_inputs(params, lead=(2,)))
+    step = parallel.build_sharded_commit(prv, mesh)
+    with ntt_shapes_held(checked, "sharded commit core"):
+        # the first collective of each axis's group starts its NCCL
+        # communicator: that call is timed apart
+        _, rec["sharded_commit_first_s"] = warm_s(
+            lambda: step(e, noise, *prv.ck_device()))
+        got, rec["sharded_commit_s"] = count(lambda: warm_s(
+            lambda: step(e, noise, *prv.ck_device())))
+        raw = prv.raw_stages()["commit_core"]
+        for i in range(2):
+            for g, w in zip(got, raw(e[i], noise[i], *prv.ck_device())):
+                if not torch.equal(g[i], w):
+                    raise AssertionError("sharded commit core != commit_core")
+    del got, e, noise
+    log(f"sharded commit core, t=2 at N=2^{LOG_N}: equal to commit_core per "
+        f"item; first call {rec['sharded_commit_first_s']:.3f} s (NCCL "
+        f"communicators start), one warm call {rec['sharded_commit_s']:.3f} s")
+
+    parallel.shard_jindo_prover(prv, mesh)
+    vs, x = held["vs"], held["x"]
+    with ntt_shapes_held(checked, "sharded round trip"):
+        out, rec["sharded_commit_many_s"] = count(
+            lambda: warm_s(lambda: prv.commit_many(vs)))
+        coms, opens = [c for c, _ in out], [o for _, o in out]
+        if [c.to_bytes() for c in coms] != held["coms"]:
+            raise AssertionError("sharded commit_many != the batch phase's")
+        (ys, pf), rec["sharded_evaluate_s"] = count(
+            lambda: warm_s(lambda: prv.evaluate(x, vs, coms, opens)))
+        if ys != held["ys"] or pf.to_bytes(params) != held["proof"]:
+            raise AssertionError("sharded evaluate != the batch phase's proof")
+        vrf = parallel.shard_jindo_verifier(
+            jindo.Verifier(params, CRS, device="cuda", ck=held["ck"]), mesh)
+        ok, rec["sharded_verify_s"] = count(
+            lambda: warm_s(lambda: vrf.verify(x, coms, ys, pf)))
+    if ok is not True:
+        raise AssertionError("the sharded verifier rejected an honest proof")
+    if vrf.verify(x, coms[::-1], ys, pf) is not False:
+        raise AssertionError("the sharded verifier accepted a swapped pair")
+    log(f"sharded Jindo round trip, batch of 2 at N=2^{LOG_N}: commitments "
+        f"and proof bytes equal the batch phase's; accepted, swapped pair "
+        f"rejected; commit_many {rec['sharded_commit_many_s']:.3f} s, "
+        f"evaluate {rec['sharded_evaluate_s']:.3f} s, verify "
+        f"{rec['sharded_verify_s']:.3f} s (one warm call each)")
+    del prv, vrf, out, coms, opens, pf
+    torch.cuda.empty_cache()
+
+    n = 1 << 15
+    t0 = time.perf_counter()
+    ring = CyclicRing(ZP220, n, device="cuda")
+    sh = parallel.ShardedBigNTT(ZP220, n, mesh, device="cuda")
+    rec["four_step_plans_s"] = time.perf_counter() - t0
+    rng = np.random.default_rng(15)
+    x = torch.from_numpy(rng.integers(0, 1 << 16, (ZP220.w, n))).to("cuda")
+    x[-1] %= int(ZP220.p_digits[-1])
+    f, rec["four_step_fwd_s"] = warm_s(lambda: sh.fwd(x))
+    back, rec["four_step_inv_s"] = warm_s(lambda: sh.inv(f))
+    want, rec["unsharded_ntt_s"] = warm_s(lambda: ring.dev_plan.fwd(x))
+    # the unsharded engine returns its own order of the same DFT values
+    if not torch.equal(f[:, ring.dev_plan.perm_f], want):
+        raise AssertionError("four-step fwd != BigRing.ntt (engine order)")
+    if not torch.equal(back, x):
+        raise AssertionError("four-step inv(fwd(x)) != x")
+    log(f"four-step NTT at rank 2^15 on ZP220 (n1 = {sh.n1}, n2 = {sh.n2}, "
+        f"{type(sh._pipes['fwd'][0]).__name__} sub-transforms): fwd equals "
+        f"BigRing.ntt in its engine order, inv(fwd(x)) = x; fwd "
+        f"{rec['four_step_fwd_s']:.3f} s, inv {rec['four_step_inv_s']:.3f} s, "
+        f"unsharded ntt {rec['unsharded_ntt_s']:.3f} s (one warm call each; "
+        f"plans {rec['four_step_plans_s']:.3f} s)")
+    for k, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {k} not launched in the sharded runs")
+    rec["launches"] = launches
+    return rec
+
+
+def parallel_buckler(backend, b, checked, mesh):
+    """The PublicKey (13, ZP220) proof on a mesh-attached Buckler prover
+    from the Buckler phase's seed (its key, a fresh prover of the same
+    seed, the embedding NTT pair on the four-step): the proof bytes equal
+    the phase's first proof, and a mesh-attached verifier accepts it."""
+    import copy
+
+    import torch
+
+    from ringo_tpu_torch import buckler, circuits, jindo, parallel
+
+    seed = circuits.seed_of("public_key")
+    prv0, vrf0 = b["prv"], b["vrf"]
+    ring = copy.copy(prv0.poly_ring)       # sharded below; the phase's stays
+    prv = buckler.Prover(prv0.params, ring, prv0.ecd, prv0.ctx,
+                         prv0.jindo.safe_copy(seed), prv0.pw_paths,
+                         prv0.w_paths, seed=seed)
+    parallel.shard_buckler_prover(prv, mesh)
+    if not isinstance(ring.dev_plan, parallel.ShardedBigNTT):
+        raise AssertionError("the embedding NTT was not sharded")
+    jv = parallel.shard_jindo_verifier(
+        jindo.Verifier(prv0.params, circuits.CRS, device="cuda",
+                       ck=prv0.jindo.ck), mesh)
+    vrf = buckler.Verifier(vrf0.params, ring, vrf0.ecd, vrf0.ctx, jv,
+                           vrf0.pw_paths, vrf0.w_paths)
+    backend.reset_launches()
+    with ntt_shapes_held(checked, "sharded PublicKey prove and verify"):
+        pf, prove_s = warm_s(lambda: prv.prove(b["assignment"]))
+        ok, verify_s = warm_s(lambda: vrf.verify(b["public"], pf))
+    launches = dict(backend.LAUNCHES)
+    if pf.to_bytes(prv.params) != b["first_proof"]:
+        raise AssertionError("sharded PublicKey proof != the Buckler phase's")
+    if ok is not True:
+        raise AssertionError("the sharded Buckler verifier rejected the proof")
+    log(f"sharded PublicKey (13, ZP220): proof bytes equal the Buckler "
+        f"phase's, accepted; prove {prove_s:.3f} s, verify {verify_s:.3f} s "
+        f"(one call each; four-step n1 = {ring.dev_plan.n1}); launches "
+        f"{launches}")
+    return dict(prove_s=prove_s, verify_s=verify_s, launches=launches)
+
+
 def main() -> int:
     import torch
+    import torch.distributed as dist
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1227,7 +1418,13 @@ def main() -> int:
     del held
     torch.cuda.empty_cache()
     phase("batch phase")
-    batch_rec = batch_phase(backend, jindo, params_batch, checked)
+    batch_rec, batch_held = batch_phase(backend, jindo, params_batch, checked)
+    torch.cuda.empty_cache()
+    phase("parallel phase")
+    mesh = parallel_start()
+    par_rec = parallel_phase(backend, jindo, params_batch, checked,
+                             batch_held, mesh)
+    del batch_held
     torch.cuda.empty_cache()
     phase("card vs CPU, card vs fixtures")
     for batch in (1, 2):
@@ -1246,6 +1443,8 @@ def main() -> int:
                                timed_reps=3 if point[1] in TIMED_POINTS else 0)
         if i == 0:
             bigfield_card_vs_cpu(b)
+            phase("parallel phase: sharded PublicKey (13, ZP220)")
+            par_rec["buckler"] = parallel_buckler(backend, b, checked, mesh)
         del b
         torch.cuda.empty_cache()
         rec["phase_s"] = time.perf_counter() - t0
@@ -1265,16 +1464,19 @@ def main() -> int:
             slice_rec["launches"], rt_rec["evaluate_launches"],
             rt_rec["verify_launches"],
             *[rec["prove_launches_total"] for rec in timed_recs],
-            *[rec["verify_launches_total"] for rec in timed_recs]))
+            *[rec["verify_launches_total"] for rec in timed_recs],
+            par_rec["launches"], par_rec["buckler"]["launches"]))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     table = {"kernels": [{k: r[k] for k in keys} for r in rows]}
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=smi, kernels=rows, slice=slice_rec,
-                       roundtrip=rt_rec, batch=batch_rec, buckler=buckler_recs,
+                       roundtrip=rt_rec, batch=batch_rec, parallel=par_rec,
+                       buckler=buckler_recs,
                        bgv=bgv_rec, mult_example=mult_rec,
                        seconds=time.perf_counter() - t_start), f, indent=1)
+    dist.destroy_process_group()
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps(table))

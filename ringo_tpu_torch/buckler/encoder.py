@@ -52,6 +52,12 @@ class Encoder:
                           self._pad(coeffs, self.embed_rank - self.rank - 1)],
                          dim=-1)
 
+    def rand_encode(self, v: torch.Tensor, blind: torch.Tensor) -> FPoly:
+        """Randomised encode of one witness, value planes [w, rank] with
+        the blind [w]: the cyclic INTT, then the X^rank blind (reference
+        RandEncodeTo, encoder.go:50-54)."""
+        return FPoly(self.rand_encode_planes(v, blind), False)
+
     def encode(self, v: torch.Tensor) -> FPoly:
         """[w, rank] value planes -> embed_rank coefficient poly."""
         return FPoly(self.encode_planes(v), False)

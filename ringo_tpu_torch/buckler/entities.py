@@ -1,7 +1,12 @@
 """Buckler proof object (reference buckler/entities.go) and its wire format:
 the JAX package's layout byte for byte (element marshal layout,
 element.go:879-888), so proofs cross between the packages with
-``to_bytes`` / ``from_bytes``."""
+``to_bytes`` / ``from_bytes``.
+
+``from_bytes`` takes a field scalar only in its canonical form, below p:
+v + p would spell a second byte string of the same proof (one proof, one
+encoding, as for the Jindo lanes).  The JAX package reduces such a scalar
+mod p and accepts it."""
 
 from __future__ import annotations
 
@@ -46,13 +51,19 @@ class Proof:
             off += n
             return data[off - n:off]
 
+        def scalar(what: str) -> int:
+            v = int.from_bytes(take(nb), "big")
+            if v >= spec.p:
+                raise ValueError(f"Buckler proof: {what} is not below p")
+            return v
+
         witness = []
         for _ in range(int.from_bytes(take(4), "big")):
             ln = int.from_bytes(take(8), "big")
             witness.append(Commitment.from_bytes(params, take(ln)))
-        lin_sum = spec.unmarshal(take(nb))
-        sum_sum = spec.unmarshal(take(nb))
-        evals = [spec.unmarshal(take(nb))
-                 for _ in range(int.from_bytes(take(4), "big"))]
+        lin_sum = scalar("lin_check_mask_sum")
+        sum_sum = scalar("sum_check_mask_sum")
+        evals = [scalar(f"evals[{i}]")
+                 for i in range(int.from_bytes(take(4), "big"))]
         eval_proof = JindoProof.from_bytes(params, data[off:])
         return cls(witness, lin_sum, sum_sum, evals, eval_proof)

@@ -14,7 +14,7 @@ reference's.  Then one Jindo ``evaluate`` of every committed polynomial.
 
 Witness decompositions and the two-norm sum run on the host in numpy
 (object-dtype Python ints where int64 cannot hold a lane); everything
-else stays on the ring's device.  The ``record_function`` spans carry the
+else stays on the ring's device.  The spans (utils/profiling.py) carry the
 JAX package's span names (ringo_tpu_torch/profile_commit.py reads them).
 Proof bytes equal the JAX package's (tests/test_torch_buckler.py).
 """
@@ -23,13 +23,13 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..csprng import UniformSampler
 from ..fields import limb
 from ..jindo.prover import sample_field_digits
 from ..rings.bigring import FPoly
 from ..utils.transcript import Shake128Stream, Transcript
+from ..utils import profiling
 from .entities import Proof
 from .utils import (balanced_int64, decompose_base, decompose_big,
                     decompose_big_vec, ternary_planes)
@@ -75,6 +75,7 @@ class Prover:
         self.pw_paths = pw_paths
         self.w_paths = w_paths
         self.device = poly_ring.device
+        self.seed = seed
         self.uniform = UniformSampler(None if seed is None else seed + b"bk")
         self.timings: dict[str, float] = {}   # compile_circuit's phases, s
 
@@ -208,7 +209,7 @@ class Prover:
         sum_bc = spec.set_bytes(oracle.compute_challenge("sumCheckBatchConst"))
         outs = []
         if ctx.has_arithmetic_check():
-            with record_function("buckler.prove.arith_check"):
+            with profiling.span("buckler.prove.arith_check"):
                 ev = self._eval_circuit(self._scales(arith_bc,
                                                      ctx.arith_constraints),
                                         ctx.arith_constraints, w_ntt, pw_ntt)
@@ -216,7 +217,7 @@ class Prover:
                                                    rank)
             outs.append(quo.coeffs[:, :ctx.arith_check_max_rank - rank])
         if ctx.has_linear_check():
-            with record_function("buckler.prove.lin_check"):
+            with profiling.span("buckler.prove.lin_check"):
                 vec = ring.horner.powers(lin_const, rank, self.device)
                 trs = [chk.transpose(vec) for chk in ctx.lin_checkers]
                 vec_ntt = ring.ntt(ecd.encode(vec)).coeffs
@@ -234,7 +235,7 @@ class Prover:
                 quo, rem = ring.quo_rem_by_vanishing(evp, rank)
             outs += [quo.coeffs[:, :rank], *self._rem_split(rem)]
         if ctx.has_sum_check():
-            with record_function("buckler.prove.sum_check"):
+            with profiling.span("buckler.prove.sum_check"):
                 ev = self._eval_circuit(
                     self._scales(sum_bc, ctx.sum_check_constraints),
                     ctx.sum_check_constraints, w_ntt, pw_ntt)
@@ -262,7 +263,7 @@ class Prover:
              for p in self.w_paths]
         w += [zeros() for _ in range(ctx.w_cnt - len(w))]
 
-        with record_function("buckler.prove.decompose"):
+        with profiling.span("buckler.prove.decompose"):
             # inf-norm decomposition witnesses (reference prover.go:77-86)
             for wid, w_dcmps in ctx.inf_dcmp_witness.items():
                 base = decompose_base(ctx.inf_dcmp_bound[wid])
@@ -298,7 +299,7 @@ class Prover:
 
         oracle = Transcript(CHALLENGE_NAMES)
 
-        with record_function("buckler.prove.encode_public"):
+        with profiling.span("buckler.prove.encode_public"):
             pw_ecd_ntt = []
             if pw:
                 _, nt = self._encode_stack(pw)
@@ -316,7 +317,7 @@ class Prover:
             drawn in witness order, as one at a time would draw them."""
             if not ids:
                 return
-            with record_function("buckler.prove.encode_witness"):
+            with profiling.span("buckler.prove.encode_witness"):
                 blinds = torch.stack([self._rand_field(1)[:, 0] for _ in ids],
                                      dim=1)                   # [w, t]
                 e, nt = self._encode_stack([w[i] for i in ids], blinds)
@@ -328,7 +329,7 @@ class Prover:
                          extra_binds: dict[int, bytes] | None = None):
             """One Jindo commit_many for the slots; each commitment (and
             any extra data of its slot) is bound in slot order."""
-            with record_function("buckler.prove.commit_batch"):
+            with profiling.span("buckler.prove.commit_batch"):
                 pairs = self.jindo.commit_many([com_polys[s] for s in slots])
             for s, (com, op) in zip(slots, pairs):
                 coms[s], opens[s] = com, op
@@ -344,7 +345,7 @@ class Prover:
         xof = Shake128Stream()
         xof.write(oracle.compute_challenge("projConst"))
         if ctx.proj_checker is not None:
-            with record_function("buckler.prove.projection"):
+            with profiling.span("buckler.prove.projection"):
                 ctx.proj_checker.fill_from_xof(xof)
                 for wid, w_proj in ctx.proj_witness.items():
                     w[w_proj.id] = ctx.proj_checker.transform(w[wid])
@@ -379,7 +380,7 @@ class Prover:
         arith_bc = spec.set_bytes(oracle.compute_challenge("arithBatchConst"))
 
         # ROUND 3: every quotient/remainder, committed in one batch
-        with record_function("buckler.prove.round3"):
+        with profiling.span("buckler.prove.round3"):
             outs = self._round3(oracle, arith_bc, w_ecd_ntt, pw_ecd_ntt,
                                 lin_mask, sum_mask)
         r3_slots = list(range(round_idx, round_idx + len(outs)))
@@ -388,7 +389,7 @@ class Prover:
         commit_batch(r3_slots, "evalPoint")
 
         eval_point = spec.set_bytes(oracle.compute_challenge("evalPoint"))
-        with record_function("buckler.prove.evaluate"):
+        with profiling.span("buckler.prove.evaluate"):
             evals, eval_proof = self.jindo.evaluate(eval_point, com_polys,
                                                     coms, opens)
         return Proof(

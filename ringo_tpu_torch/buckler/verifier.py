@@ -11,9 +11,9 @@ the same proofs (tests/test_torch_buckler.py).
 from __future__ import annotations
 
 import torch
-from torch.profiler import record_function
 
 from ..utils.transcript import Shake128Stream, Transcript
+from ..utils import profiling
 from .entities import Proof
 from .prover import CHALLENGE_NAMES, to_planes
 from .utils import decompose_base
@@ -86,13 +86,13 @@ class Verifier:
             oracle.bind("evalPoint", pf.witness[i].raw_bytes())
         eval_point = spec.set_bytes(oracle.compute_challenge("evalPoint"))
 
-        with record_function("buckler.verify.jindo"):
+        with profiling.span("buckler.verify.jindo"):
             if not self.jindo.verify(eval_point, pf.witness, pf.evals,
                                      pf.eval_proof):
                 return False
 
         vanish_eval = (pow(eval_point, rank, mod) - 1) % mod
-        with record_function("buckler.verify.pw_evals"):
+        with profiling.span("buckler.verify.pw_evals"):
             pw_evals = []
             if pw:
                 e = self.ecd.encode_planes(torch.stack(pw, dim=1))
@@ -108,7 +108,7 @@ class Verifier:
 
         if ctx.has_linear_check():
             quo_e, lo_e, hi_e = pf.evals[round_idx:round_idx + 3]
-            with record_function("buckler.verify.lin_check"):
+            with profiling.span("buckler.verify.lin_check"):
                 ok = self._lin_check(lin_bc, lin_const, lin_mask_eval,
                                      eval_point, vanish_eval,
                                      pf.lin_check_mask_sum, quo_e, lo_e, hi_e,

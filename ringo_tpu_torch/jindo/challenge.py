@@ -26,6 +26,11 @@ def encode_challenges(params: Parameters, ring, chal_list) -> torch.Tensor:
     return ring.ntt_mform(ring.embed_int64(coeffs.to(ring.device)))
 
 
+def encode_challenge(params: Parameters, ring, chal_bytes: bytes) -> torch.Tensor:
+    """Single-challenge form of ``encode_challenges``: [L, 1, d]."""
+    return encode_challenges(params, ring, [chal_bytes])
+
+
 def read_challenges(oracle: Shake128Stream, n: int) -> list[bytes]:
     """The next n 16-byte challenges of the oracle, squeezed in one read
     (the bytes n reads of 16 would give)."""

@@ -28,18 +28,20 @@ tests/test_torch_roundtrip.py).
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from .. import backend
 from ..csprng import RoundedGaussianSampler, UniformSampler
 from ..csprng import chacha
 from ..csprng.gaussian import TwinCDTDevice
 from ..fields import limb
-from ..ops import mac_matmul
 from ..ops.horner import HornerPlan
 from ..rings.rns_device import CrtShiftEmbed
+from ..utils import profiling
+from . import stages
 from .challenge import bind_statement, encode_challenges, left_vec, \
     read_challenges
 from .encoder import Encoder
@@ -81,12 +83,9 @@ class Prover:
         self.spec = params.spec
         self.ring_q = p.ring_q.on(self.device)
         self.ring_q_out = p.ring_q_out.on(self.device)
-        self.ecd = Encoder(params, seed, ring=self.ring_q)
         self.horner = HornerPlan(params.spec)
         self.ck = CommitKey(params, crs, self.device) if ck is None else ck
-        self.uniform = UniformSampler(None if seed is None else seed + b"u")
-        self.rounded = RoundedGaussianSampler(
-            None if seed is None else seed + b"rg")
+        self._reseed(seed)
         self.twin_ecd = TwinCDTDevice(p.ecd_std_dev, self.device)
         self.twin_ml = TwinCDTDevice(p.mlwe_std_dev, self.device)
         self.crt_in = CrtShiftEmbed(self.ring_q, self.ring_q_out,
@@ -99,6 +98,92 @@ class Prover:
         self.FIX_CAP = max(4096, -(-B * R * d // 40960) * 1024)
         self._pk_in, self._pk_out = self.ck.folded(self.ring_q,
                                                    self.ring_q_out)
+        self._sharded = None
+
+    def _reseed(self, seed: bytes | None) -> None:
+        """Fresh host samplers: from ``seed``, or from the OS's entropy
+        when it is None."""
+        self.seed = seed
+        self.ecd = Encoder(self.params, seed, ring=self.ring_q)
+        self.uniform = UniformSampler(None if seed is None else seed + b"u")
+        self.rounded = RoundedGaussianSampler(
+            None if seed is None else seed + b"rg")
+
+    def safe_copy(self, seed: bytes | None = None) -> "Prover":
+        """An independent prover for concurrent use (reference SafeCopy,
+        jindo/prover.go:327-339): it shares the parameters, the commit key
+        and every table (all read-only) and has fresh samplers, random
+        like the reference's or derived from ``seed``."""
+        new = object.__new__(Prover)
+        new.__dict__.update(self.__dict__)
+        new._reseed(seed)
+        return new
+
+    def set_mesh(self, mesh) -> None:
+        """Attach a device mesh (parallel.make_mesh; ``None`` detaches):
+        ``commit_many`` then splits each batch over the mesh's ``dp`` axis,
+        and its commit core and ``evaluate``'s combine, partial products
+        and responses split the RNS prime planes over ``tp`` (the commit
+        core also the MAC rows over ``sp``); the collectives of
+        parallel/commit.py put the results together on every rank, equal
+        to the prover's without a mesh.  Every rank of the mesh calls it
+        (and every later commit and evaluate) alike.  A prover without a
+        seed takes rank 0's fresh seed, so that the ranks draw alike."""
+        if mesh is None:
+            self._sharded = None
+            return
+        from ..parallel.commit import ShardedStages
+        from ..parallel.multihost import bcast_bytes, rank
+
+        sharded = ShardedStages(self, mesh)
+        if self.seed is None:
+            self._reseed(bcast_bytes(os.urandom(32) if rank() == 0 else None,
+                                     32))
+        self._sharded = sharded
+
+    def raw_stages(self) -> dict:
+        """The device stages as plain callables on tensors over this
+        prover's rings (jindo/stages.py), keyed as the JAX package's
+        ``raw_stages`` (ringo_tpu/jindo/prover.py:622-633):
+
+        * ``commit_core(e_i64, noise, pk_in, pk_out) -> (enc, mlwe,
+          ic_ntt, outer)``, per item or with a leading batch axis, with
+          ``pk_in, pk_out = ck_device()``;
+        * ``sample(e_all, keys_enc, keys_ml, default_lanes, c_sub, oidx,
+          noise_mask) -> (e_i64, noise, n_bad)``;
+        * ``seeds_encode``, ``partial``, ``response``, ``combine``,
+          ``combine_seeds``.
+
+        Absent are the JAX package's fused programs ``commit_fused``,
+        ``commit_fused_batch`` and ``commit_from_samples``: they fuse
+        ``sample`` and ``commit_core`` into one jitted program (and the
+        host fix-up path between them), which eager PyTorch has no use
+        for; ``commit_many`` runs ``sample`` then ``commit_core`` on the
+        whole batch."""
+        p, ring, ring_out = self.params, self.ring_q, self.ring_q_out
+        return {
+            "commit_core": lambda e_i64, noise, pk_in, pk_out:
+                stages.commit_core(p, ring, ring_out, self.crt_in,
+                                   self.crt_out, e_i64, noise, pk_in, pk_out),
+            "sample": self._sample,
+            "seeds_encode": lambda e_i64, noise:
+                stages.seeds_encode(ring, e_i64, noise),
+            "partial": lambda left_ecd, enc: stages.partial(ring, left_ecd, enc),
+            "response": lambda chals, enc, mlwe:
+                stages.response(ring, p.cols, chals, enc, mlwe),
+            "combine": lambda ics, encs, mlwes, bos, bqs:
+                stages.combine(ring, ring_out, ics, encs, mlwes, bos, bqs),
+            "combine_seeds": lambda e_all, noise_all, ics, bos, bqs:
+                stages.combine_seeds(ring, ring_out, e_all, noise_all, ics,
+                                     bos, bqs, self._combine_chunk(e_all,
+                                                                   noise_all)),
+        }
+
+    def ck_device(self):
+        """The commit key as the MAC operands the stages take: (folded
+        [In | MLWE] over ring_q, folded Out over ring_q_out), each a
+        (planes, corr) pair of ``mac_matmul.folded``."""
+        return self._pk_in, self._pk_out
 
     # ------------------------------------------------------------ host side
 
@@ -214,22 +299,24 @@ class Prover:
     def _commit_batch(self, e_all, keys_enc, keys_ml, default_lanes, c_sub,
                       oidx, noise_mask):
         """t commits at once, bit-identical to t single commits (same
-        per-commit ChaCha streams, same per-lane decisions).
+        per-commit ChaCha streams, same per-lane decisions); split over
+        the mesh when one is attached (``set_mesh``).
 
         e_all [t, w, BR, S] int64; keys_* [t, 8] int32; default_lanes
         [t, BR] bool; c_sub [t, OMAX, d] int64; oidx [t, OMAX] int64;
         noise_mask [t, K, d] int64.  Returns (e_i64 [t, B, R, d],
         noise [t, B, K, d], ic_ntt [t, LO, dcmp, d] residues,
-        outer [t, LO, outR, d] residues, n_bad)."""
-        with record_function("jindo.commit.sample"):
-            e_i64, noise, n_bad = self._sample(
-                e_all, keys_enc, keys_ml, default_lanes, c_sub, oidx,
+        outer [t, LO, outR, d] residues, overflow): ``overflow`` is true
+        where the twin-table disagreements outran ``FIX_CAP``."""
+        args = (e_all, keys_enc, keys_ml, default_lanes, c_sub, oidx,
                 noise_mask)
-        with record_function("jindo.commit.encode_mac"):
-            com = self._inner(e_i64, noise)
-        with record_function("jindo.commit.outer"):
-            ic_ntt, outer = self._outer(com, e_all.shape[0])
-        return e_i64, noise, ic_ntt, outer, n_bad
+        if self._sharded is not None:
+            return self._sharded.commit_batch(self, *args)
+        with profiling.span("jindo.commit.sample"):
+            e_i64, noise, n_bad = self._sample(*args)
+        _, _, ic_ntt, outer = self.raw_stages()["commit_core"](
+            e_i64, noise, self._pk_in, self._pk_out)
+        return e_i64, noise, ic_ntt, outer, n_bad > self.FIX_CAP * len(e_all)
 
     def _sample(self, e_all, keys_enc, keys_ml, default_lanes, c_sub, oidx,
                 noise_mask):
@@ -273,40 +360,6 @@ class Prover:
         noise = torch.cat([prov_ml.reshape(t, p.cols, K, d),
                            noise_mask[:, None]], dim=1)     # [t, B, K, d]
         return e_i64, noise, bad.sum()
-
-    def _inner(self, e_i64, noise):
-        """Encode NTTs, inner Ajtai MAC (n-axis t*B), inverse NTT:
-        inner commitments [L, J, t*B, d] in the coefficient domain."""
-        p = self.params
-        ring = self.ring_q
-        t, B, d = e_i64.shape[0], p.cols + 1, p.degree
-        J = p.in_msis_rank
-        enc = ring.ntt_mform(ring.embed_int64(e_i64))       # [L, t, B, R, d]
-        mlwe = ring.ntt_mform(ring.embed_int64(noise))      # [L, t, B, K, d]
-        x_all = torch.cat([enc.permute(0, 3, 1, 2, 4),
-                           mlwe[:, :, :, :p.mlwe_rank].permute(0, 3, 1, 2, 4)],
-                          dim=1)                            # [L, KK, t, B, d]
-        x_all = x_all.reshape(ring.L, -1, t * B, d)
-        com = mac_matmul.mod_mac(ring, self._pk_in, x_all)  # [L, J, t*B, d]
-        tail = mlwe[:, :, :, p.mlwe_rank:].permute(0, 3, 1, 2, 4
-                                                   ).reshape(ring.L, J, t * B, d)
-        return ring.intt_imform(ring.add(com, tail))
-
-    def _outer(self, com, t: int):
-        """Inner CRT cutoff, outer NTT, MAC and cutoff: (ic_ntt
-        [t, LO, dcmp, d], outer [t, LO, outR, d]) residues."""
-        p = self.params
-        ring_out = self.ring_q_out
-        B, d = p.cols + 1, p.degree
-        J, LO, dcmp = p.in_msis_rank, ring_out.L, p.in_com_dcmp_len
-        ic = self.crt_in(com).reshape(LO, J, t, B, d)
-        ic = ic.permute(0, 2, 3, 1, 4).reshape(LO, t * dcmp, d)
-        ic_ntt = ring_out.ntt_mform(ic).reshape(LO, t, dcmp, d)
-        x_out = ic_ntt.transpose(1, 2)                      # [LO, dcmp, t, d]
-        acc = mac_matmul.mod_mac(ring_out, self._pk_out, x_out)
-        acc = ring_out.intt_imform(acc)                     # [LO, outR, t, d]
-        outer = ring_out.ntt_mform(self.crt_out(acc))
-        return ic_ntt.transpose(0, 1), outer.permute(2, 0, 1, 3)
 
     # ---------------------------------------------------------------- commit
 
@@ -358,27 +411,27 @@ class Prover:
         return out
 
     def _commit_chunk(self, vs: list):
-        """One batch dispatch.  The ``record_function`` spans name the
+        """One batch dispatch.  The spans (utils/profiling.py) name the
         phases in a torch.profiler trace (ringo_tpu_torch/profile_commit.py)
-        and cost nothing measurable without one."""
+        and in the span registry."""
         p = self.params
         cs = p.cols * p.slots
         e_alls, sides = [], []
         for v in vs:
             n = v.shape[1]
-            with record_function("jindo.commit.meta"):
+            with profiling.span("jindo.commit.meta"):
                 meta = self._meta(v[:, :cs].cpu(), n)
-            with record_function("jindo.commit.host_side"):
+            with profiling.span("jindo.commit.host_side"):
                 sides.append(self._host_side_meta(*meta))
-            with record_function("jindo.commit.assemble"):
+            with profiling.span("jindo.commit.assemble"):
                 e_alls.append(self._assemble(v.to(self.device), n, *meta[:4]))
         stack = lambda j: torch.stack([s[j] for s in sides]).to(self.device)
         t = len(vs)
-        e_i64, noise, ic_ntt, outer, n_bad = self._commit_batch(
+        e_i64, noise, ic_ntt, outer, overflow = self._commit_batch(
             torch.stack(e_alls), stack(3), stack(4), stack(0), stack(2),
             stack(1), stack(5))
-        with record_function("jindo.commit.pull"):
-            if int(n_bad) > self.FIX_CAP * t:  # pragma: no cover
+        with profiling.span("jindo.commit.pull"):
+            if bool(overflow):  # pragma: no cover
                 raise RuntimeError("twin-CDT disagreements exceed FIX_CAP")
             ring_out = self.ring_q_out
             outer_h = ring_out.to_planes(outer).cpu()      # [2, t, LO, outR, d]
@@ -393,9 +446,9 @@ class Prover:
     def _seeds_encode(self, e_i64, noise):
         """An opening's Encode / MLWE tensors from its seeds (embed, MForm,
         NTT): signed [*lead, d] -> residues [L, *lead, d]."""
-        ring = self.ring_q
-        return (ring.ntt_mform(ring.embed_int64(e_i64)),
-                ring.ntt_mform(ring.embed_int64(noise)))
+        if self._sharded is not None:
+            return self._sharded.seeds_encode(e_i64, noise)
+        return stages.seeds_encode(self.ring_q, e_i64, noise)
 
     def _combine_seeds(self, e_all, noise_all, ics, bos, bqs, chunk=None):
         """Batch-combine t openings with the challenge polynomials
@@ -405,54 +458,37 @@ class Prover:
         challenges over the two rings.  Returns (ic [LO, dcmp, d], enc
         [L, B, R, d], mlwe [L, B, K, d]).
 
-        The openings are re-encoded ``chunk`` at a time, one batched NTT
-        each for Encode and MLWE; the chunk comes from the free device
+        The openings are re-encoded ``chunk`` at a time
+        (``stages.combine_seeds``); the chunk comes from the free device
         memory over ~64 B per lane and prime of one opening (the int64
         embed, the int32 residues before and after the NTT, and the int64
-        temporaries of the Montgomery product and the sum).  Sums of
-        canonical residues are exact in int64 and mod-add is associative,
-        so any chunking gives the same tensors."""
-        ring, ring_out = self.ring_q, self.ring_q_out
-        t = e_all.shape[0]
+        temporaries of the Montgomery product and the sum).  Any chunking
+        gives the same tensors."""
         if chunk is None:
-            lanes = e_all[0].numel() + noise_all[0].numel()
-            chunk = self._fit(t, 64 * ring.L * lanes)
+            chunk = self._combine_chunk(e_all, noise_all)
+        if self._sharded is not None:
+            return self._sharded.combine_seeds(e_all, noise_all, ics, bos,
+                                               bqs, chunk)
+        return stages.combine_seeds(self.ring_q, self.ring_q_out, e_all,
+                                    noise_all, ics, bos, bqs, chunk)
 
-        def fold(rg, x, b):
-            """sum over the opening axis 1 of x * b, mod q."""
-            s = rg.mul_mont(x, b).to(torch.int64).sum(dim=1)
-            return (s % rg._col(rg.q, s.dim())).to(torch.int32)
-
-        acc = None
-        for c0 in range(0, t, chunk):
-            sl = slice(c0, c0 + chunk)
-            enc, ml = self._seeds_encode(e_all[sl], noise_all[sl])
-            bq = bqs[sl].transpose(0, 1)[:, :, None, None, :]
-            bo = bos[sl].transpose(0, 1)[:, :, None, :]
-            part = (fold(ring_out, ics[sl].transpose(0, 1), bo),
-                    fold(ring, enc, bq), fold(ring, ml, bq))
-            acc = part if acc is None else (
-                ring_out.add(acc[0], part[0]), ring.add(acc[1], part[1]),
-                ring.add(acc[2], part[2]))
-        return acc
+    def _combine_chunk(self, e_all, noise_all) -> int:
+        lanes = e_all[0].numel() + noise_all[0].numel()
+        return self._fit(e_all.shape[0], 64 * self.ring_q.L * lanes)
 
     def _partial(self, left_ecd, enc):
-        """Partial products sum_j left_j * Encode[:, j] (reference
-        prover.go:275-294), a MAC over the rows axis: left_ecd [L, R, d],
-        enc [L, B, R, d] -> [L, B, d]."""
-        lp = mac_matmul.folded(self.ring_q, left_ecd[:, None])
-        return mac_matmul.mod_mac(self.ring_q, lp, enc.transpose(1, 2))[:, 0]
+        """Partial products (``stages.partial``): left_ecd [L, R, d], enc
+        [L, B, R, d] -> [L, B, d]."""
+        if self._sharded is not None:
+            return self._sharded.partial(left_ecd, enc)
+        return stages.partial(self.ring_q, left_ecd, enc)
 
     def _response(self, chals, enc, mlwe):
-        """Responses: the mask column plus sum_j chal_j * column_j
-        (reference prover.go:296-316), MACs over the cols axis: chals
-        [L, cols, d] -> (resp_e [L, R, d], resp_m [L, K, d])."""
-        ring, cols = self.ring_q, self.params.cols
-        cp = mac_matmul.folded(ring, chals[:, None])
-        te = mac_matmul.mod_mac(ring, cp, enc[:, :cols])
-        tm = mac_matmul.mod_mac(ring, cp, mlwe[:, :cols])
-        return (ring.add(enc[:, cols], te[:, 0]),
-                ring.add(mlwe[:, cols], tm[:, 0]))
+        """Responses (``stages.response``): chals [L, cols, d] -> (resp_e
+        [L, R, d], resp_m [L, K, d])."""
+        if self._sharded is not None:
+            return self._sharded.response(chals, enc, mlwe)
+        return stages.response(self.ring_q, self.params.cols, chals, enc, mlwe)
 
     def _evaluations(self, x: int, vs: list) -> list[int]:
         """y_i = v_i(x) on the device (reference prover.go:318-323), as
@@ -478,7 +514,7 @@ class Prover:
         oracle, batch_bytes = bind_statement(p, self.ck, coms, x)
 
         if p.batch > 1:
-            with record_function("jindo.evaluate.combine"):
+            with profiling.span("jindo.evaluate.combine"):
                 ic, enc, mlwe = self._combine_seeds(
                     torch.stack([o.seeds[0] for o in opens]),
                     torch.stack([o.seeds[1] for o in opens]),
@@ -487,25 +523,25 @@ class Prover:
                     encode_challenges(p, ring_out, batch_bytes).transpose(0, 1),
                     encode_challenges(p, ring, batch_bytes).transpose(0, 1))
         else:
-            with record_function("jindo.evaluate.materialize"):
+            with profiling.span("jindo.evaluate.materialize"):
                 ic = ring_out.from_planes(opens[0].in_commit).to(self.device)
                 enc, mlwe = self._seeds_encode(*opens[0].seeds)
 
-        with record_function("jindo.evaluate.partial"):
+        with profiling.span("jindo.evaluate.partial"):
             left_ecd = self.ecd.encode_scalars(left_vec(p, x))
             part = ring.to_planes(self._partial(left_ecd, enc)).cpu()
         partial, partial_mask = part[:, :, :p.cols], part[:, :, p.cols]
-        with record_function("jindo.evaluate.oracle"):
+        with profiling.span("jindo.evaluate.oracle"):
             for i in range(p.cols):
                 oracle.write(ring.to_bytes(partial[:, :, i]))
             oracle.write(ring.to_bytes(partial_mask))
             chals = encode_challenges(p, ring, read_challenges(oracle, p.cols))
-        with record_function("jindo.evaluate.response"):
+        with profiling.span("jindo.evaluate.response"):
             resp_e, resp_m = self._response(chals, enc, mlwe)
             pf = Proof(in_commit=ring_out.to_planes(ic).cpu(),
                        partial=partial, partial_mask=partial_mask,
                        encode=ring.to_planes(resp_e).cpu(),
                        mlwe=ring.to_planes(resp_m).cpu())
-        with record_function("jindo.evaluate.horner"):
+        with profiling.span("jindo.evaluate.horner"):
             evals = self._evaluations(x, vs)
         return evals, pf

@@ -17,7 +17,6 @@ from __future__ import annotations
 import math
 
 import torch
-from torch.profiler import record_function
 
 from .. import backend
 from ..fields import limb
@@ -25,6 +24,7 @@ from ..ops import mac_matmul
 from ..ops.bigmul import BigMul
 from ..ops.horner import tree_sum
 from ..rings.rns_device import CrtShiftEmbed, norm_cols_to_int
+from ..utils import profiling
 from .challenge import bind_statement, encode_challenges, left_vec, \
     read_challenges, right_vec
 from .encoder import Encoder
@@ -53,6 +53,7 @@ class Verifier:
         self.lift = CrtShiftEmbed(self.ring_q_out, self.ring_q, 0)
         self.norm_q = CrtShiftEmbed(self.ring_q, self.ring_q, 0)
         self.big = BigMul(self.spec)
+        self._tp = None
 
     def _eval_weights(self, x: int) -> torch.Tensor:
         """Big-field digit planes [w, cols, d] of the decoded-evaluation
@@ -96,56 +97,95 @@ class Verifier:
             ok.append(flag)
         return res, torch.stack(vals, dim=1), torch.stack(ok).all()
 
+    def set_mesh(self, mesh) -> None:
+        """Attach a device mesh (parallel.make_mesh; ``None`` detaches):
+        the modular arithmetic of ``verify`` then splits the RNS prime
+        planes over the mesh's ``tp`` axis, and the planes are gathered
+        before the norms and the decoded evaluation, which need all of
+        them.  Every rank of the mesh calls it, and ``verify``, alike."""
+        self._tp = None
+        if mesh is not None:
+            from ..parallel.commit import sub_ring
+            from ..parallel.mesh import mesh_axes
+
+            tp = mesh_axes(mesh, self.device)[1]
+            pl = tp.take(self.ring_q.L, self.device)
+            pl_out = tp.take(self.ring_q_out.L, self.device)
+            self._tp = (tp, pl, pl_out, sub_ring(self.ring_q, pl),
+                        sub_ring(self.ring_q_out, pl_out))
+
+    def _outer_part(self, ring_out, pk_out, out_cutoff, in_commit, coms,
+                    batch_out):
+        """The plane-local outer half over ``ring_out`` (all or some of
+        the outer primes): the coefficient-domain InCommit and the outer
+        residual com * 2^outCutoff - Out . InCommit (verifier.go:98-161)."""
+        p, mac = self.params, mac_matmul.mod_mac
+        if p.batch > 1:
+            bo = mac_matmul.folded(ring_out, batch_out[:, None])
+            acc = mac(ring_out, bo, coms)[:, 0]
+        else:
+            acc = coms[:, 0]
+        acc = ring_out.mul_scalar_mont(acc, out_cutoff)
+        acc = ring_out.sub(acc, mac(ring_out, pk_out,
+                                    in_commit[:, :, None, :])[:, :, 0])
+        return ring_out.intt_imform(in_commit), ring_out.intt_imform(acc)
+
+    def _inner_part(self, ring, pk_in, in_cutoff, partial, encode, mlwe,
+                    partial_mask, lifted, chals, left_ecd):
+        """The plane-local inner half over ``ring``: the coefficient-domain
+        copies, the inner residual (sum_j chal_j . lift(InCommit_j) +
+        lift(mask)) * 2^inCutoff - In . Encode - MLWE . resMLWE - tail
+        (verifier.go:98-200) and the NTT-domain consistency residual
+        sum_i left_i . Encode_i - sum chal . Partial - Mask (:203-221)."""
+        p, mac = self.params, mac_matmul.mod_mac
+        col = lambda a: a[:, :, None, :]               # one MAC column, n = 1
+        lifted = ring.ntt_mform(lifted).reshape(
+            ring.L, p.cols + 1, p.in_msis_rank, p.degree)
+        ch = mac_matmul.folded(ring, chals[:, None])
+        acc2 = ring.add(mac(ring, ch, lifted[:, :p.cols])[:, 0],
+                        lifted[:, p.cols])
+        acc2 = ring.mul_scalar_mont(acc2, in_cutoff)
+        x_enc = torch.cat([encode, mlwe[:, :p.mlwe_rank]], dim=1)
+        acc2 = ring.sub(acc2, mac(ring, pk_in, col(x_enc))[:, :, 0])
+        acc2 = ring.sub(acc2, mlwe[:, p.mlwe_rank:])
+        le = mac_matmul.folded(ring, left_ecd[:, None])
+        test = mac(ring, le, col(encode))[:, 0, 0]
+        test = ring.sub(test, mac(ring, ch, col(partial))[:, 0, 0])
+        test = ring.sub(test, partial_mask)
+        return (ring.intt_imform(partial), ring.intt_imform(encode),
+                ring.intt_imform(mlwe), ring.intt_imform(acc2), test)
+
     def _core(self, pf, coms, batch_out, chals, left_ecd, eval_w):
         """All the modular arithmetic of a verification (reference
         verifier.go:98-282).  pf: residues by field; coms [LO, t, outR, d];
         batch_out [LO, t, d] (None for t = 1); chals [L, cols, d];
         left_ecd [L, rows, d]; eval_w [w, cols, d].  Returns (consistent
         flag, outer norm columns, inner norm columns, digits [w] of the
-        decoded evaluation)."""
-        p = self.params
-        ring, ring_out = self.ring_q, self.ring_q_out
-        in_commit, partial, encode, mlwe = (
-            pf["in_commit"], pf["partial"], pf["encode"], pf["mlwe"])
-        mac = mac_matmul.mod_mac
-        col = lambda a: a[:, :, None, :]               # one MAC column, n = 1
-
-        # coefficient-domain copies (verifier.go:98-114)
-        partial_inv = ring.intt_imform(partial)
-        encode_inv = ring.intt_imform(encode)
-        mlwe_inv = ring.intt_imform(mlwe)
-        in_commit_inv = ring_out.intt_imform(in_commit)
-
-        # outer residual com * 2^outCutoff - Out . InCommit (:136-161)
-        if p.batch > 1:
-            bo = mac_matmul.folded(ring_out, batch_out[:, None])
-            acc = mac(ring_out, bo, coms)[:, 0]
+        decoded evaluation).  With a mesh the two plane-local halves run
+        on the rank's primes and their planes are gathered over tp."""
+        inner_args = [pf["partial"], pf["encode"], pf["mlwe"],
+                      pf["partial_mask"], None, chals, left_ecd]
+        outer_args = [pf["in_commit"], coms, batch_out]
+        if self._tp is None:
+            in_commit_inv, acc_outer_inv = self._outer_part(
+                self.ring_q_out, self._pk_out, self.out_cutoff, *outer_args)
+            inner_args[4] = self.lift(in_commit_inv)
+            parts = self._inner_part(self.ring_q, self._pk_in, self.in_cutoff,
+                                     *inner_args)
         else:
-            acc = coms[:, 0]
-        acc = ring_out.mul_scalar_mont(acc, self.out_cutoff)
-        acc = ring_out.sub(acc, mac(ring_out, self._pk_out,
-                                    col(in_commit))[:, :, 0])
-        acc_outer_inv = ring_out.intt_imform(acc)
-
-        # inner residual (sum_j chal_j . lift(InCommit_j) + lift(mask))
-        # * 2^inCutoff - In . Encode - MLWE . resMLWE - tail (:164-200)
-        lifted = ring.ntt_mform(self.lift(in_commit_inv)).reshape(
-            ring.L, p.cols + 1, p.in_msis_rank, p.degree)
-        ch = mac_matmul.folded(ring, chals[:, None])
-        acc2 = ring.add(mac(ring, ch, lifted[:, :p.cols])[:, 0],
-                        lifted[:, p.cols])
-        acc2 = ring.mul_scalar_mont(acc2, self.in_cutoff)
-        x_enc = torch.cat([encode, mlwe[:, :p.mlwe_rank]], dim=1)
-        acc2 = ring.sub(acc2, mac(ring, self._pk_in, col(x_enc))[:, :, 0])
-        acc2 = ring.sub(acc2, mlwe[:, p.mlwe_rank:])
-        acc_inner_inv = ring.intt_imform(acc2)
-
-        # NTT-domain consistency sum_i left_i . Encode_i = sum chal .
-        # Partial + Mask (:203-221)
-        le = mac_matmul.folded(ring, left_ecd[:, None])
-        test = mac(ring, le, col(encode))[:, 0, 0]
-        test = ring.sub(test, mac(ring, ch, col(partial))[:, 0, 0])
-        test = ring.sub(test, pf["partial_mask"])
+            tp, pl, pl_out, ring, ring_out = self._tp
+            take = lambda a, idx: None if a is None else a[idx]
+            halves = self._outer_part(
+                ring_out, mac_matmul.key_slice(self._pk_out, pl_out),
+                self.out_cutoff[pl_out], *[take(a, pl_out) for a in outer_args])
+            in_commit_inv, acc_outer_inv = (
+                tp.gather(h, 0, self.ring_q_out.L) for h in halves)
+            inner_args[4] = self.lift(in_commit_inv)
+            parts = self._inner_part(
+                ring, mac_matmul.key_slice(self._pk_in, pl),
+                self.in_cutoff[pl], *[take(a, pl) for a in inner_args])
+            parts = [tp.gather(h, 0, self.ring_q.L) for h in parts]
+        partial_inv, encode_inv, mlwe_inv, acc_inner_inv, test = parts
         consistent = ~(test != 0).any()
 
         # exact l2 norms (:262-282) as digit columns
@@ -181,7 +221,7 @@ class Verifier:
         if len(coms) != p.batch or len(ys) != p.batch:
             raise ValueError("batch size mismatch")
 
-        with record_function("jindo.verify.oracle"):
+        with profiling.span("jindo.verify.oracle"):
             oracle, batch_bytes = bind_statement(p, self.ck, coms, x)
             batch_q = batch_out = None
             if batch_bytes is not None:
@@ -192,7 +232,7 @@ class Verifier:
             oracle.write(ring.to_bytes(pf.partial_mask))
             chals = encode_challenges(p, ring, read_challenges(oracle, p.cols))
 
-        with record_function("jindo.verify.device"):
+        with profiling.span("jindo.verify.device"):
             res, coms_res, canonical = self._upload(pf, coms)
             consistent, cols_out, cols_in, test_digits = self._core(
                 res, coms_res, batch_out, chals,
@@ -202,7 +242,7 @@ class Verifier:
                             cols_out, cols_in, test_digits]).tolist()
         if not (sc[0] and sc[1]):
             return False
-        with record_function("jindo.verify.norms"):
+        with profiling.span("jindo.verify.norms"):
             if math.isqrt(norm_cols_to_int(sc[2:2 + n_out])) \
                     >= p.in_com_dcmp_two_nm:
                 return False
@@ -210,6 +250,6 @@ class Verifier:
             if math.isqrt(norm_cols_to_int(sc[2 + n_out:2 + n_out + n_in])) \
                     >= p.res_two_nm:
                 return False
-        with record_function("jindo.verify.eval"):
+        with profiling.span("jindo.verify.eval"):
             return sc[2 + n_out + n_in:] == self.spec.to_digits_int(
                 self._y_batch(ys, batch_q))

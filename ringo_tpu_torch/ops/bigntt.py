@@ -24,14 +24,18 @@ from .bigmul import BigMul
 
 class BigNTTDev:
     def __init__(self, spec: FieldSpec, n: int, negacyclic: bool,
-                 device=None):
+                 device=None, generator: int | None = None):
+        """``generator`` replaces the canonical root of the twiddle tables
+        (ops/ntt.py ``_tables_host``); the sharded four-step
+        (parallel/bigntt.py) builds its sub-transforms from powers of one
+        root."""
         self.spec = spec
         self.n = n
         self.negacyclic = negacyclic
         self.device = backend.resolve_device(device)
         self.mul = BigMul(spec)
         tw, twinv, ninv = nttmod._tables_host(spec.p, spec.b, spec.k, n,
-                                              negacyclic)
+                                              negacyclic, generator)
         put = lambda v: limb.ints_to_digits(v, spec.w).to(self.device)
         self.tw = put(tw)                              # [w, n]
         self.twinv = put(twinv)

@@ -39,13 +39,19 @@ from .bigmul import BigMul
 from .bigntt import BigNTTDev
 
 
+def engine_mode() -> str:
+    """``RINGO_BIG_NTT``: "auto" (the default), "stage" or "matmul"."""
+    mode = os.environ.get("RINGO_BIG_NTT", "auto")
+    if mode not in ("auto", "stage", "matmul"):
+        raise ValueError(f"RINGO_BIG_NTT={mode!r}: expected auto|stage|matmul")
+    return mode
+
+
 def make_device_plan(spec: FieldSpec, n: int, negacyclic: bool,
                      leaf: int | None = None, device=None):
     """The NTT plan of a big-field ring: ``MatmulBigNTT`` for wide fields at
     meaningful ranks, ``BigNTTDev`` otherwise; ``RINGO_BIG_NTT`` forces one."""
-    mode = os.environ.get("RINGO_BIG_NTT", "auto")
-    if mode not in ("auto", "stage", "matmul"):
-        raise ValueError(f"RINGO_BIG_NTT={mode!r}: expected auto|stage|matmul")
+    mode = engine_mode()
     if mode == "matmul" or (mode == "auto" and spec.w >= 14 and n >= 256):
         return MatmulBigNTT(spec, n, negacyclic, leaf=leaf, device=device)
     return BigNTTDev(spec, n, negacyclic, device=device)
@@ -100,10 +106,19 @@ def _simulate_engine_order(spec: FieldSpec, n: int, negacyclic: bool,
 class MatmulBigNTT:
     """Drop-in for BigNTTDev (same fwd/inv, bit-identical outputs) on
     ``device``.  Every table is built at construction, the engine order
-    included (O(n log n) Python-int work: seconds at n = 2^17)."""
+    included (O(n log n) Python-int work: seconds at n = 2^17).
+
+    ``generator`` replaces the canonical root (of order 2n if negacyclic,
+    n otherwise): the sharded four-step (parallel/bigntt.py) needs its
+    sub-transforms to be powers of one fixed root.  ``order="engine"``
+    puts the outputs into BigNTTDev's order (the drop-in); ``"dft"``
+    returns and takes true DFT order, natural k, with no gathers."""
 
     def __init__(self, spec: FieldSpec, n: int, negacyclic: bool,
-                 leaf: int | None = None, device=None):
+                 leaf: int | None = None, device=None,
+                 generator: int | None = None, order: str = "engine"):
+        if order not in ("engine", "dft"):
+            raise ValueError(f"order={order!r}: expected engine|dft")
         self.spec = spec
         self.n = n
         self.negacyclic = negacyclic
@@ -120,7 +135,8 @@ class MatmulBigNTT:
 
         n_inv = pow(n, p - 2, p)
         if negacyclic:
-            psi = spec.find_generator(n, True)
+            psi = generator if generator is not None \
+                else spec.find_generator(n, True)
             g = psi * psi % p
             psi_inv = pow(psi, p - 2, p)
             tws, unt = [], []
@@ -133,18 +149,22 @@ class MatmulBigNTT:
             self.twist, self.untwist_scale = put(tws), put(unt)   # [w, n]
             self.scale = None
         else:
-            g = psi = spec.find_generator(n, False)
+            g = psi = generator if generator is not None \
+                else spec.find_generator(n, False)
             self.twist = self.untwist_scale = None
             self.scale = put([n_inv])                             # [w, 1]
         self.g = g
         self.g_inv = pow(g, p - 2, p)
 
-        tw_engine, _, _ = nttmod._tables_host(p, spec.b, spec.k, n, negacyclic)
-        perm = _simulate_engine_order(spec, n, negacyclic, tw_engine, psi)
-        self.perm_f = torch.from_numpy(perm).to(dev)  # engine_out = true[perm]
-        inv_perm = np.empty(n, dtype=np.int64)
-        inv_perm[perm] = np.arange(n)
-        self.perm_b = torch.from_numpy(inv_perm).to(dev)
+        self.perm_f = self.perm_b = None
+        if order == "engine":
+            tw_engine, _, _ = nttmod._tables_host(p, spec.b, spec.k, n,
+                                                  negacyclic, generator)
+            perm = _simulate_engine_order(spec, n, negacyclic, tw_engine, psi)
+            self.perm_f = torch.from_numpy(perm).to(dev)  # engine = true[perm]
+            inv_perm = np.empty(n, dtype=np.int64)
+            inv_perm[perm] = np.arange(n)
+            self.perm_b = torch.from_numpy(inv_perm).to(dev)
 
         self._maps = {}                               # (tag, m) -> BigLinMap
         self._grids = {"f": self._build_grids(g), "b": self._build_grids(self.g_inv)}
@@ -213,14 +233,17 @@ class MatmulBigNTT:
 
     def fwd(self, x: torch.Tensor) -> torch.Tensor:
         """Forward NTT over the last axis; x plain planes [w, *batch, n].
-        Output bit-identical to BigNTTDev.fwd."""
+        Output bit-identical to BigNTTDev.fwd (order "engine")."""
         if self.twist is not None:
             x = self.big.mul_mod(x, self._planes(self.twist, x.dim()))
-        return self._rec(x, self.n, 0, "f", self.g)[..., self.perm_f]
+        out = self._rec(x, self.n, 0, "f", self.g)
+        return out if self.perm_f is None else out[..., self.perm_f]
 
     def inv(self, x: torch.Tensor) -> torch.Tensor:
-        """Inverse NTT (with 1/n) of values in BigNTTDev's order.  Output
-        bit-identical to BigNTTDev.inv."""
-        out = self._rec(x[..., self.perm_b], self.n, 0, "b", self.g_inv)
+        """Inverse NTT (with 1/n) of values in BigNTTDev's order (order
+        "engine") or DFT order.  Output bit-identical to BigNTTDev.inv."""
+        if self.perm_b is not None:
+            x = x[..., self.perm_b]
+        out = self._rec(x, self.n, 0, "b", self.g_inv)
         fix = self.untwist_scale if self.scale is None else self.scale
         return self.big.mul_mod(out, self._planes(fix, out.dim()))

@@ -81,6 +81,22 @@ def folded(ring, key: torch.Tensor):
     return planes, fold_corr(planes)
 
 
+def key_slice(key_planes, planes=None, rows=None):
+    """A folded key restricted to some of its primes (``planes``, an index
+    tensor into L) and output rows (``rows``, into J): ``mod_mac`` with the
+    slice, over a ring of those primes, gives those rows and primes of
+    ``mod_mac`` with the whole key (the sharded commit splits both)."""
+    kp, corr = key_planes
+    if planes is not None:
+        kp, corr = kp[planes], corr[planes]
+    if rows is not None:
+        J = kp.shape[2] // P7
+        idx = (torch.arange(P7, device=rows.device)[:, None] * J
+               + rows[None]).reshape(-1)
+        kp, corr = kp[:, :, idx], corr[:, :, idx]
+    return kp, corr
+
+
 def mod_mac(ring, key_planes, x: torch.Tensor) -> torch.Tensor:
     """Exact (key . x mod q) with the key folded by ``fold_key``.
 

@@ -136,6 +136,21 @@ class BigRing:
         """Pointwise product of value planes."""
         return self.ops.mul(a, b)
 
+    def shard(self, mesh, n1: int | None = None):
+        """Swap the NTT plan for the coefficient-sharded four-step
+        (parallel.ShardedBigNTT, an all-to-all over the mesh's ``sp``
+        axis).  Only the transform pair changes (true DFT order both ways,
+        mutually inverse), so every ntt -> pointwise product -> intt chain
+        gives the coefficients of the unsharded plan bit for bit.
+        Cyclic rings only.  Returns the sharded plan."""
+        if self.negacyclic:
+            raise ValueError("four-step sharding is cyclic-only")
+        from ..parallel.bigntt import ShardedBigNTT
+
+        self.dev_plan = ShardedBigNTT(self.spec, self.rank, mesh, n1=n1,
+                                      device=self.device)
+        return self.dev_plan
+
     def ntt(self, a: FPoly) -> FPoly:
         if a.is_ntt:
             raise ValueError("already NTT")

@@ -81,6 +81,36 @@ def test_malformed_proof_bytes_raise():
     assert back.to_bytes(port["params"]) == port["data"]
 
 
+def _scalar_offsets(params, data: bytes) -> dict:
+    """Byte offsets of lin_sum, sum_sum and evals[0] in a proof."""
+    off = 4
+    for _ in range(int.from_bytes(data[:4], "big")):
+        off += 8 + int.from_bytes(data[off:off + 8], "big")
+    nb = -(-params.spec.bits // 64) * 8
+    return {"lin_sum": off, "sum_sum": off + nb, "evals0": off + 2 * nb + 4}
+
+
+@pytest.mark.parametrize("which", ["lin_sum", "sum_sum", "evals0"])
+def test_non_canonical_scalars_are_refused(which):
+    """A field scalar of the proof spelled v + p (a second byte string of
+    the same proof) makes the port's decoder raise ValueError.  The JAX
+    package reduces it mod p, and its numpy-backend verifier accepts the
+    proof: that verdict is held here beside the port's."""
+    port, ref = cases.port_case("public_key"), cases.ref_numpy_case("public_key")
+    params, data = port["params"], port["data"]
+    off = _scalar_offsets(params, data)[which]
+    nb = -(-params.spec.bits // 64) * 8
+    v = int.from_bytes(data[off:off + nb], "big") + params.spec.p
+    bad = data[:off] + v.to_bytes(nb, "big") + data[off + nb:]
+    with pytest.raises(ValueError):
+        bk.Proof.from_bytes(params, bad)
+    assert ref["vrf"].verify(ref["public"], ref_bk.Proof.from_bytes(
+        ref["params"], bad)) is True
+    # the canonical bytes decode and verify as before
+    back = bk.Proof.from_bytes(params, data)
+    assert port["vrf"].verify(port["public"], back) is True
+
+
 @pytest.mark.slow
 def test_fixture_is_the_jax_package_output():
     """Re-derive every circuit's proof through the JAX package's jax

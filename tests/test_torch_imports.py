@@ -44,7 +44,9 @@ def test_importing_the_port_loads_neither():
     code = ("import sys, ringo_tpu_torch.jindo, ringo_tpu_torch.backend, "
             "ringo_tpu_torch.buckler, ringo_tpu_torch.circuits, "
             "ringo_tpu_torch.schemes, ringo_tpu_torch.examples.bfv, "
-            "ringo_tpu_torch.examples.mult, ringo_tpu_torch.fields.modulus; "
+            "ringo_tpu_torch.examples.mult, ringo_tpu_torch.fields.modulus, "
+            "ringo_tpu_torch.parallel, ringo_tpu_torch.entry, "
+            "ringo_tpu_torch.utils.profiling; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ringo_tpu')]; print(bad); sys.exit(bool(bad))")
     env = dict(os.environ, PYTHONPATH=ROOT)
