@@ -19,11 +19,17 @@
    it at N = 2^19, for t = 1 and for a batch of 2 (whose parameters have
    other rings); the warm-up calls of phases 3 and 4 and the calls of
    phase 5 fail if they launch it at a shape that was not held here;
-3. commit phase: builds the N = 2^19 prover on the card (CRS expansion timed
-   on the host), commits once to warm up, then with every launch count at
-   0 drives ``commit`` three times (timed) and ``commit_many`` once, reads
-   each one's peak device memory, and fails unless every kernel was
-   launched;
+2a. AES phase: the AES-256-CTR keystream kernel of the samplers
+   (csrc/aes256_ctr.cu) against the numpy keystream, exact bytes, at one
+   8 KiB refill, a read-ahead window, a commit's and a CRS expansion's
+   keystream, an unaligned start block, a carry out of the counter's low
+   64 bits and the 2^128 wrap, and on the SP 800-38A F.5.5 vector; kernel,
+   kernel plus copy to the host and numpy timed beside the bound;
+3. commit phase: builds the N = 2^19 prover on the card (CRS expansion
+   timed, its launches counted from 0: it fails unless the AES kernel ran),
+   commits once to warm up, then with every launch count at 0 drives
+   ``commit`` three times (timed) and ``commit_many`` once, reads each
+   one's peak device memory, and fails unless every kernel was launched;
 4. round-trip phase on the same prover and key: with the counts at 0,
    ``evaluate`` at a fixed point (median of 3, peak memory, NTT launches;
    the evaluation held against Horner's rule in Python ints over all 2^19
@@ -72,7 +78,8 @@
    (buckler_n8.npz), each device's verifier accepts the other's proof.
 
 Any failure raises.  The line before the last is the kernel table as JSON
-(launches: the main paths' runs, the timed Buckler ones included: PublicKey
+(launches: the main paths' runs, the CRS expansion and the timed Buckler
+ones included: PublicKey
 and bfv, and the parallel phase's sharded runs); the
 last line is {"ok": true, "device": {...}}.  It needs the repository
 beside it and exits non-zero, printing no result, when CUDA is absent.
@@ -449,6 +456,106 @@ def kernel_phase(params, params_batch):
     return rows, checked, errs
 
 
+# ---------------------------------------------------------------- AES phase
+
+# 32-bit operations of one AES-256 block: 13 full rounds and the last one,
+# 4 columns each, 12 operations a column (4 table reads, 4 byte selects,
+# 4 XORs), and the 4 XORs of the first round key
+AES_OPS_PER_BLOCK = 14 * 4 * 12 + 4
+COMMIT_KEYSTREAM_BYTES = 9_003_008   # the most one commit of the Jindo cell draws
+
+
+def aes_bound(n_blocks: int):
+    """Least time of the keystream of n counter blocks: 16 bytes written a
+    block, the 256 bytes of round keys and counter read once, and
+    ``AES_OPS_PER_BLOCK`` operations a block."""
+    return bench.bound_ms(16 * n_blocks + 256, AES_OPS_PER_BLOCK * n_blocks)
+
+
+def crs_keystream_blocks(params) -> int:
+    """Counter blocks of a commit key's CRS expansion (jindo/entities.py:
+    one u64 per coefficient and prime of In, MLWE and Out, drawn in 8 KiB
+    refills)."""
+    p = params
+    draws = p.degree * (p.ring_q.L * p.in_msis_rank * (p.rows + p.mlwe_rank)
+                        + p.ring_q_out.L * p.out_msis_rank * p.in_com_dcmp_len)
+    return -(-8 * draws // 8192) * 8192 // 16
+
+
+def host_ms(fn, reps: int):
+    """Median host-clock ms of ``reps`` calls, each ending in a
+    synchronise."""
+    return statistics.median(timed(fn, reps)[1]) * 1e3
+
+
+def aes_phase(params, errs: dict):
+    """The AES-256-CTR kernel (``ctr_keystream_cuda``) against the numpy
+    keystream ``ctr_keystream``, exact bytes: one 8 KiB refill, a
+    sampler's read-ahead window, a commit's keystream, a CRS expansion's,
+    an unaligned start block, a counter that carries from its low 64 bits
+    into the high ones, the 2^128 wrap and the SP 800-38A F.5.5 vector.
+    Times the kernel alone (CUDA events), the kernel plus its copy to the
+    host and the numpy version (host clock), each beside its bound."""
+    import torch
+
+    from ringo_tpu_torch.csprng import uniform
+
+    rng = np.random.default_rng(21)
+    rk = uniform.expand_key_256(rng.bytes(32))
+    iv = int.from_bytes(rng.bytes(16), "big")
+    commit_nb = COMMIT_KEYSTREAM_BYTES // 16
+    crs_nb = crs_keystream_blocks(params)
+    cases = [("8 KiB refill", rk, iv, 0, 512),
+             ("read-ahead window", rk, iv, 512, uniform.WINDOW_BLOCKS),
+             ("commit keystream", rk, iv, 0, commit_nb),
+             ("CRS expansion", rk, iv, 0, crs_nb),
+             ("unaligned start block", rk, iv, 12345, 1000),
+             ("low-64 carry", rk, (7 << 64) | ((1 << 64) - 300), 0, 1000),
+             ("2^128 wrap", rk, (1 << 128) - 300, 0, 1000)]
+    errs["aes"] = 0
+    for label, k, v, b0, nb in cases:
+        got = uniform.ctr_keystream_cuda(k, v, b0, nb, "cuda")
+        want = uniform.ctr_keystream(k, v, b0, nb)
+        errs["aes"] = max(errs["aes"], max_abs_err(
+            torch.from_numpy(got), torch.from_numpy(want), f"aes {label}"))
+        log(f"aes {label}: {nb} blocks from block {b0}, equal to plain")
+    key = bytes.fromhex("603deb1015ca71be2b73aef0857d7781"
+                        "1f352c073b6108d72d9810a30914dff4")
+    ctr = int.from_bytes(bytes.fromhex("f0f1f2f3f4f5f6f7f8f9fafbfcfdfeff"), "big")
+    pt = bytes.fromhex(
+        "6bc1bee22e409f96e93d7e117393172aae2d8a571e03ac9c9eb76fac45af8e51"
+        "30c81c46a35ce411e5fbc1191a0a52eff69f2445df4f9b17ad2b417be66c3710")
+    ct = bytes.fromhex(
+        "601ec313775789a5b7a7f504bbf3d228f443e3ca4d62b59aca84e990cacaf5c5"
+        "2b0930daa23de94ce87017ba2d84988ddfc9c58db67aada613c2dd08457941a6")
+    ks = uniform.ctr_keystream_cuda(uniform.expand_key_256(key), ctr, 0, 4, "cuda")
+    if (np.frombuffer(pt, np.uint8) ^ ks).tobytes() != ct:
+        raise AssertionError("aes: the SP 800-38A F.5.5 vector failed")
+    log("aes SP 800-38A F.5.5 (AES-256-CTR): equal to the standard's ciphertext")
+
+    passes = []
+    for label, nb in (("read-ahead window", uniform.WINDOW_BLOCKS),
+                      ("commit keystream", commit_nb), ("CRS expansion", crs_nb)):
+        buf = torch.empty(16 * nb, dtype=torch.uint8, device="cuda")
+        ms = bench.time_ms(lambda: uniform.ctr_blocks_cuda(rk, iv, 0, buf))
+        copy_ms = host_ms(lambda: uniform.ctr_keystream_cuda(rk, iv, 0, nb, "cuda"), 10)
+        plain_ms = host_ms(lambda: uniform.ctr_keystream(rk, iv, 0, nb), 1)
+        b, by = aes_bound(nb)
+        passes.append(dict(label=label, blocks=nb, ms=ms, copy_ms=copy_ms,
+                           plain_ms=plain_ms, bound_ms=b, bound_by=by))
+        log(f"aes {label}: {nb} blocks ({16 * nb} bytes): kernel {ms:.4f} ms, "
+            f"bound {b:.4f} ms ({by}), share {b / ms:.3f}; kernel + copy to "
+            f"the host {copy_ms:.3f} ms; numpy {plain_ms:.1f} ms")
+        del buf
+    w = passes[0]
+    return dict(name="aes256_ctr", route="cuda",
+                source="ringo_tpu_torch/csrc/aes256_ctr.cu",
+                replaces="ringo_tpu/csprng/uniform.py:34",
+                ms=w["ms"], plain_ms=w["plain_ms"], bound_ms=w["bound_ms"],
+                bound_by=w["bound_by"], library_ms=None, passes=passes,
+                shape=f"{w['blocks']} counter blocks", kernel="aes")
+
+
 # -------------------------------------------------------------- slice phase
 
 def random_values(spec, n: int, seed: int):
@@ -513,10 +620,15 @@ def commit_phase(backend, jindo, params, checked):
     the NTT shapes that the kernel phase held against the plain version."""
     import torch
 
+    backend.reset_launches()
     t0 = time.perf_counter()
     ck = jindo.CommitKey(params, CRS, device="cuda")
     crs_s = time.perf_counter() - t0
-    log(f"CRS expansion (AES-256-CTR on the host) N=2^{LOG_N}: {crs_s:.3f} s")
+    crs_launches = dict(backend.LAUNCHES)
+    if crs_launches["aes"] <= 0:
+        raise AssertionError("the CRS expansion did not launch the AES kernel")
+    log(f"CRS expansion (AES-256-CTR keystream on the card) N=2^{LOG_N}: "
+        f"{crs_s:.3f} s, launches {crs_launches}")
     prv = jindo.Prover(params, CRS, seed=SEED, device="cuda", ck=ck)
     v = random_values(params.spec, 1 << LOG_N, 1)
     v2 = random_values(params.spec, (1 << LOG_N) - 12345, 2)
@@ -547,7 +659,7 @@ def commit_phase(backend, jindo, params, checked):
         f"{held_before:.3f} GiB)")
     rec = dict(log_n=LOG_N, commit_s=times, commit_median_s=med,
                coeffs_per_s=(1 << LOG_N) / med, crs_expand_s=crs_s,
-               launches=launches, peak_mem_gib=peak,
+               crs_launches=crs_launches, launches=launches, peak_mem_gib=peak,
                peak_mem_many_gib=peak_many, held_before_gib=held_before)
     return rec, (prv, v, com, op)
 
@@ -968,7 +1080,7 @@ def buckler_phase(backend, point, checked: set, errs: dict, gen, rng,
             f"per verify {verify_launches}")
     else:
         prove_launches, verify_launches = first_prove_launches, first_verify_launches
-    for k in ("ntt", "chacha", "twin"):
+    for k in backend.KERNELS:
         if prove_launches[k] <= 0:
             raise AssertionError(f"{label}: kernel {k} not launched in prove")
     if verify_launches["ntt"] <= 0:
@@ -1065,7 +1177,7 @@ def mult_example_phase(backend, checked: set):
     launches = dict(backend.LAUNCHES)
     if r["ok"] is not True:
         raise AssertionError("mult example: the proof did not verify")
-    for k in ("ntt", "chacha", "twin"):
+    for k in backend.KERNELS:
         if launches[k] <= 0:
             raise AssertionError(f"mult example: kernel {k} not launched")
     log(f"mult example (13, ZP128): compile {r['compile_s']:.3f} s, prove "
@@ -1093,7 +1205,7 @@ def bigfield_card_vs_cpu(b):
     ring_h = CyclicRing(spec, emb, device="cpu")
     plans_s = time.perf_counter() - t0
     v = b["assignment"].sk_ntt
-    blind = sample_field_digits(spec, 1, UniformSampler(b"blind"))[:, 0]
+    blind = sample_field_digits(spec, 1, UniformSampler(b"blind", device="cuda"))[:, 0]
     e_c = FPoly(prv.ecd.rand_encode_planes(v, blind.to("cuda")))
     f_c = prv.poly_ring.ntt(e_c)
     back = prv.poly_ring.intt(f_c)
@@ -1356,6 +1468,8 @@ def main() -> int:
     params_batch = jindo.new_parameters(ZP255, 1 << LOG_N, 2)
     rows, checked, errs = kernel_phase(params, params_batch)
     phase = lambda what: log(f"-- {what} (at {time.perf_counter() - t_start:.1f} s)")
+    phase("AES phase")
+    rows.append(aes_phase(params, errs))
     phase("commit phase")
     slice_rec, held = commit_phase(backend, jindo, params, checked)
     phase("round-trip phase")
@@ -1400,13 +1514,15 @@ def main() -> int:
     buckler_card_vs_cpu_and_fixture(checked, errs, gen, rng)
 
     # launches of the main paths, each read after a run that began with the
-    # counts at 0: the commits, the evaluates and the verifies at N = 2^19,
+    # counts at 0: the CRS expansion, the commits, the evaluates and the
+    # verifies at N = 2^19,
     # and the timed Buckler proves and verifies (PublicKey and bfv at 2^13)
     timed_recs = [rec for rec in buckler_recs if "prove_launches_total" in rec]
     for r in rows:
         r["max_abs_err"] = errs[r["kernel"]]
         r["launches"] = sum(rec[r["kernel"]] for rec in (
-            slice_rec["launches"], rt_rec["evaluate_launches"],
+            slice_rec["crs_launches"], slice_rec["launches"],
+            rt_rec["evaluate_launches"],
             rt_rec["verify_launches"],
             *[rec["prove_launches_total"] for rec in timed_recs],
             *[rec["verify_launches_total"] for rec in timed_recs],

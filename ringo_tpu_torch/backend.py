@@ -33,7 +33,7 @@ BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 
-KERNELS = ("ntt", "chacha", "twin")
+KERNELS = ("ntt", "chacha", "twin", "aes")
 LAUNCHES = {k: 0 for k in KERNELS}
 
 
@@ -66,6 +66,7 @@ _SIGNATURES = {
     "ringo_ntt_mform": "pppppiip",
     "ringo_chacha20": "ppiip",
     "ringo_twin_search": "ppppppiip",
+    "ringo_aes256_ctr": "ppip",
 }
 _CT = {"p": ctypes.c_void_p, "i": ctypes.c_int}
 

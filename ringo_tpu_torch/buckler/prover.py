@@ -76,7 +76,8 @@ class Prover:
         self.w_paths = w_paths
         self.device = poly_ring.device
         self.seed = seed
-        self.uniform = UniformSampler(None if seed is None else seed + b"bk")
+        self.uniform = UniformSampler(None if seed is None else seed + b"bk",
+                                      device=self.device)
         self.timings: dict[str, float] = {}   # compile_circuit's phases, s
 
     # -- helpers ---------------------------------------------------------

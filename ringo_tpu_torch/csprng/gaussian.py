@@ -3,7 +3,8 @@ twin-CDT search.
 
 The host samplers (Ziggurat rounding, twin-CDT, COSAC) are the port's own
 numpy copy of ``ringo_tpu.csprng.gaussian``: the same decision rules in the
-same stream order, so each draws exactly what the reference draws.
+same stream order, so each draws exactly what the reference draws.  Each
+takes the device its uniform keystream is drawn on.
 
 ``TwinCDTDevice`` is the commit path's search on tensors.  ``twin_search``
 runs the CUDA kernel (csrc/twin_search.cu) on a CUDA tensor and its plain
@@ -62,8 +63,8 @@ _KN, _WN, _FN = _ziggurat_tables()
 class RoundedGaussianSampler:
     """Ziggurat normal sampler + rounding (reference gaussian_rounded.go)."""
 
-    def __init__(self, seed: bytes | None = None):
-        self.base = UniformSampler(seed)
+    def __init__(self, seed: bytes | None = None, *, device):
+        self.base = UniformSampler(seed, device=device)
 
     def norm_float(self, count: int) -> np.ndarray:
         out = np.empty(count)
@@ -160,8 +161,8 @@ class TwinCDTGaussianSampler:
     """Twin-CDT discrete Gaussian: variable center, fixed sigma
     (reference gaussian_twin_cdt.go)."""
 
-    def __init__(self, std_dev: float, seed: bytes | None = None):
-        self.base = UniformSampler(seed)
+    def __init__(self, std_dev: float, seed: bytes | None = None, *, device):
+        self.base = UniformSampler(seed, device=device)
         self.std_dev = float(std_dev)
         self.tables = np.stack(
             [compute_cdt(i / BLOCK_SIZE, std_dev) for i in range(BLOCK_SIZE)])
@@ -216,9 +217,10 @@ class COSACSampler:
     """COSAC discrete Gaussian: variable center *and* sigma
     (reference gaussian_cosac.go)."""
 
-    def __init__(self, seed: bytes | None = None):
-        self.base = UniformSampler(seed)
-        self.rounded = RoundedGaussianSampler(seed if seed is None else seed + b"r")
+    def __init__(self, seed: bytes | None = None, *, device):
+        self.base = UniformSampler(seed, device=device)
+        self.rounded = RoundedGaussianSampler(
+            seed if seed is None else seed + b"r", device=device)
 
     def sample(self, center, std_dev, count: int | None = None) -> np.ndarray:
         c = np.atleast_1d(np.asarray(center, dtype=np.float64))

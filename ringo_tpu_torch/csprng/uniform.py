@@ -3,26 +3,40 @@
 8 KiB buffer XORs each new keystream chunk over its previous contents, and
 ``sample`` consumes 8 little-endian bytes.
 
-AES is the port's own numpy implementation (FIPS-197 with the usual four
-32-bit T-tables), vectorised over every counter block of a request at
-once, so the sampler needs no crypto package.  CTR is seekable, so a
-snapshot is a byte offset: ``sample_n``'s rare rejection path rewinds to
-it and replays in exact scalar order.  A large draw XORs its 8 KiB chunks
-with one cumulative XOR, which is what the refill loop computes one chunk
-at a time.
+The keystream comes from the sampler's device: on a CUDA device from the
+kernel csrc/aes256_ctr.cu (``ctr_keystream_cuda``), on the CPU from its
+plain version ``ctr_keystream``, the port's own numpy AES (FIPS-197 with
+the usual four 32-bit T-tables, vectorised over every counter block of a
+request at once), so the sampler needs no crypto package.  A sampler keeps
+a read-ahead window of keystream blocks on the host, so that the 8 KiB
+refills of a CUDA sampler do not each pay a launch and a synchronising
+copy.  CTR is seekable, so the window changes no byte, and a snapshot is a
+byte offset: ``sample_n``'s rare rejection path rewinds to it and replays
+in exact scalar order.  A large draw XORs its 8 KiB chunks with one
+cumulative XOR, which is what the refill loop computes one chunk at a
+time.
 """
 
 from __future__ import annotations
 
 import hashlib
 import os
+import threading
 
 import numpy as np
+import torch
+
+from .. import backend
 
 BUF_SIZE = 8192
 FLOAT_PREC = 52
 _U64_MAX = (1 << 64) - 1
 _CHUNK_BLOCKS = 1 << 16   # counter blocks per vectorised AES pass
+_LAUNCH_BLOCKS = 1 << 22  # counter blocks per kernel launch (64 MiB)
+# read-ahead window of a sampler, in counter blocks: 1 MiB on the card; on
+# the CPU, where reading ahead saves nothing, one 8 KiB refill
+WINDOW_BLOCKS = 1 << 16
+PLAIN_WINDOW_BLOCKS = BUF_SIZE // 16
 
 
 # ------------------------------------------------------------------ AES
@@ -144,15 +158,88 @@ def ctr_keystream(rk: np.ndarray, iv: int, block0: int,
     return out.view(np.uint8).reshape(-1)
 
 
+def ctr_blocks_cuda(rk: np.ndarray, iv: int, block0: int,
+                    out: torch.Tensor) -> torch.Tensor:
+    """The CUDA kernel (csrc/aes256_ctr.cu), one launch: fills ``out``,
+    uint8 [16 * n] on the card, with the keystream of counter blocks
+    iv+block0 .. iv+block0+n-1, as ``ctr_keystream`` computes it."""
+    backend.require(out, torch.uint8, name="out")
+    if out.dim() != 1 or not out.is_cuda or out.numel() % 16:
+        raise ValueError("out: expected uint8 [16 * n_blocks] on the card")
+    n_blocks = out.numel() // 16
+    if not 0 < n_blocks <= _LAUNCH_BLOCKS:
+        raise ValueError(f"n_blocks out of range: {n_blocks}")
+    if rk.dtype != np.uint32 or rk.shape != (60,):
+        raise ValueError("rk: expected the 60 uint32 words of expand_key_256")
+    start = (iv + block0) % (1 << 128)
+    args = np.concatenate([rk, np.array(
+        [(start >> s) & 0xFFFFFFFF for s in (96, 64, 32, 0)], dtype=np.uint32)])
+    err = backend.lib().ringo_aes256_ctr(
+        args.ctypes.data, out.data_ptr(), n_blocks, backend.stream_ptr(out))
+    backend.check(err, "aes256_ctr")
+    backend.LAUNCHES["aes"] += 1
+    return out
+
+
+_STAGING = {}   # device -> pinned host buffer of the copies back
+_STAGING_LOCK = threading.Lock()
+
+
+def ctr_keystream_cuda(rk: np.ndarray, iv: int, block0: int, n_blocks: int,
+                       device) -> np.ndarray:
+    """``ctr_keystream`` computed by the kernel on the card ``device``:
+    launches of at most 64 MiB, each copied to the host through one pinned
+    staging buffer that the calls share."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"ctr_keystream_cuda: {device} is not a CUDA device")
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    res = np.empty(16 * n_blocks, dtype=np.uint8)
+    with _STAGING_LOCK:
+        for c0 in range(0, n_blocks, _LAUNCH_BLOCKS):
+            nbytes = 16 * min(_LAUNCH_BLOCKS, n_blocks - c0)
+            stage = _STAGING.get(device)
+            if stage is None or stage.numel() < nbytes:
+                stage = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+                _STAGING[device] = stage
+            dev = torch.empty(nbytes, dtype=torch.uint8, device=device)
+            ctr_blocks_cuda(rk, iv, block0 + c0, dev)
+            stage[:nbytes].copy_(dev, non_blocking=True)
+            torch.cuda.current_stream(device).synchronize()
+            res[16 * c0:16 * c0 + nbytes] = stage[:nbytes].numpy()
+    return res
+
+
+def keystream(rk: np.ndarray, iv: int, block0: int, n_blocks: int,
+              device: torch.device) -> np.ndarray:
+    """Keystream bytes of counter blocks iv+block0 .. +n_blocks-1: the
+    kernel on a CUDA device, the plain version on the CPU."""
+    if device.type == "cuda":
+        return ctr_keystream_cuda(rk, iv, block0, n_blocks, device)
+    if device.type == "cpu":
+        return ctr_keystream(rk, iv, block0, n_blocks)
+    raise ValueError(f"no AES-CTR keystream on {device}")
+
+
 # -------------------------------------------------------------- sampler
 
 class UniformSampler:
-    def __init__(self, seed: bytes | None = None):
+    def __init__(self, seed: bytes | None = None, *, device):
+        """Draws its keystream on ``device``: a CUDA device runs the
+        kernel, the CPU the plain version.  ``window`` counter blocks are
+        read ahead: ``WINDOW_BLOCKS`` on the card, ``PLAIN_WINDOW_BLOCKS``
+        on the CPU."""
         if seed is None:
             seed = os.urandom(32)
         r = hashlib.sha384(seed).digest()
         self._rk = expand_key_256(r[:32])
         self._iv = int.from_bytes(r[32:48], "big")
+        self.device = torch.device(device)
+        self.window = (WINDOW_BLOCKS if self.device.type == "cuda"
+                       else PLAIN_WINDOW_BLOCKS)
+        self._win = np.zeros(0, dtype=np.uint8)  # keystream of blocks [w0, w1)
+        self._w0 = self._w1 = 0
         self._consumed = 0  # keystream bytes consumed so far
         self._buf = np.zeros(BUF_SIZE, dtype=np.uint8)
         self._ptr = BUF_SIZE
@@ -160,13 +247,23 @@ class UniformSampler:
     # -- keystream plumbing --------------------------------------------------
 
     def _keystream(self, n: int) -> np.ndarray:
+        """The next n keystream bytes, sliced from the read-ahead window;
+        a request that leaves it refills it with ``window`` blocks from
+        the first block the request needs, and one larger than the window
+        is drawn on its own and not kept."""
         pos = self._consumed
         b0 = pos // 16
         b1 = -(-(pos + n) // 16)
-        ks = ctr_keystream(self._rk, self._iv, b0, b1 - b0)
         self._consumed += n
-        off = pos - 16 * b0
-        return ks[off:off + n]
+        if not self._w0 <= b0 <= b1 <= self._w1:
+            if b1 - b0 > self.window:
+                ks = keystream(self._rk, self._iv, b0, b1 - b0, self.device)
+                return ks[pos - 16 * b0:pos - 16 * b0 + n]
+            self._win = keystream(self._rk, self._iv, b0, self.window,
+                                  self.device)
+            self._w0, self._w1 = b0, b0 + self.window
+        off = pos - 16 * self._w0
+        return self._win[off:off + n]
 
     def _snapshot(self):
         return (self._consumed, self._buf.copy(), self._ptr)

@@ -46,7 +46,8 @@ class Encoder:
         self.spec = params.spec
         self.ring = params.ring_q if ring is None else ring
         self.rns = RnsReconstructor(params.ring_q)
-        self.cosac = COSACSampler(None if seed is None else seed + b"co")
+        self.cosac = COSACSampler(None if seed is None else seed + b"co",
+                                  device=self.ring.device)
         self.delta_inv = _delta_inv(params)
 
     def base_digits(self, values: torch.Tensor) -> torch.Tensor:

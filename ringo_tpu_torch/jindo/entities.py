@@ -58,7 +58,7 @@ class CommitKey:
         p = params
         self.crs = bytes(crs)
         self.device = backend.resolve_device(device)
-        u = UniformSampler(self.crs)
+        u = UniformSampler(self.crs, device=self.device)
         In = _sample_ring_polys(u, p.ring_q, p.in_msis_rank * p.rows)
         MLWE = _sample_ring_polys(u, p.ring_q, p.in_msis_rank * p.mlwe_rank)
         Out = _sample_ring_polys(u, p.ring_q_out,

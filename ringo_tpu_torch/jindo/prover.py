@@ -105,9 +105,10 @@ class Prover:
         when it is None."""
         self.seed = seed
         self.ecd = Encoder(self.params, seed, ring=self.ring_q)
-        self.uniform = UniformSampler(None if seed is None else seed + b"u")
+        self.uniform = UniformSampler(None if seed is None else seed + b"u",
+                                      device=self.device)
         self.rounded = RoundedGaussianSampler(
-            None if seed is None else seed + b"rg")
+            None if seed is None else seed + b"rg", device=self.device)
 
     def safe_copy(self, seed: bytes | None = None) -> "Prover":
         """An independent prover for concurrent use (reference SafeCopy,

@@ -44,7 +44,8 @@ def shard_buckler_prover(bk_prover, mesh, ntt_n1: int | None = None,
     shard_jindo_prover(bk_prover.jindo, mesh)
     if bk_prover.seed is None:
         seed = bcast_bytes(os.urandom(32) if rank() == 0 else None, 32)
-        bk_prover.uniform = UniformSampler(seed + b"bk")
+        bk_prover.uniform = UniformSampler(seed + b"bk",
+                                           device=bk_prover.device)
     if bk_prover.poly_ring.rank >= min_ntt_rank:
         bk_prover.poly_ring.shard(mesh, n1=ntt_n1)
     return bk_prover

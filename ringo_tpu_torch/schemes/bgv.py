@@ -46,9 +46,9 @@ class SecretKey:
 class BGV:
     def __init__(self, params: BGVParams, seed: bytes | None = None):
         self.params = params
-        self.uniform = UniformSampler(seed)
+        self.uniform = UniformSampler(seed, device=params.device)
         self.gauss = RoundedGaussianSampler(
-            None if seed is None else seed + b"g")
+            None if seed is None else seed + b"g", device=params.device)
         self.rec = RnsReconstructor(params.ring_q)
 
     def gen_secret_key(self) -> SecretKey:
