@@ -25,6 +25,16 @@
    keystream, an unaligned start block, a carry out of the counter's low
    64 bits and the 2^128 wrap, and on the SP 800-38A F.5.5 vector; kernel,
    kernel plus copy to the host and numpy timed beside the bound;
+2b. big-field phase: the big-field kernel (csrc/bigfield.cu: mul_mod,
+   reduce_cols, tree_sum, limb add/sub/neg/geq) against the plain versions
+   on the card, exactly, at all seven field widths with the corner values
+   0, 1, p - 1 and the all-0xFFFF plane, broadcast and sliced operands;
+   then at the cells' shapes (the evaluate's Horner product and tree sum
+   at [16, 1, 2^19], the PublicKey ring's [14, 4, 2^15], reduce_cols at
+   BigLinMap's 2w + 1 columns, a commit's CRT cutoff geq), timed beside
+   the bound, mul_mod at [16, 2^19] beside the plain version too.  The
+   commits, evaluates, verifies and Buckler proves and verifies below
+   fail unless they launched it;
 3. commit phase: builds the N = 2^19 prover on the card (CRS expansion
    timed, its launches counted from 0: it fails unless the AES kernel ran),
    commits once to warm up, then with every launch count at 0 drives
@@ -556,6 +566,215 @@ def aes_phase(params, errs: dict):
                 shape=f"{w['blocks']} counter blocks", kernel="aes")
 
 
+# ----------------------------------------------------------- big-field phase
+
+BIGFIELD_FIELDS = ("ZP110", "ZP128", "ZP220", "ZP240", "ZP255", "ZP440", "ZP880")
+
+
+def bigfield_mul_adds(w: int) -> int:
+    """16 x 16-bit multiply-adds of one ``mul_mod`` lane: the product
+    x * y, the columns of floor(z / B^(w-1)) * mu up to q_hat's top digit,
+    and the low w + 2 digits of q_hat * p."""
+    q = sum(1 for i in range(w + 2) for j in range(w + 2) if i + j <= 2 * w + 1)
+    qp = sum(1 for i in range(w + 1) for j in range(w) if i + j <= w + 1)
+    return w * w + q + qp
+
+
+def bigfield_bound(ins, out, lanes: int, ops_per_lane: int):
+    """Least time of one big-field call: each input read once as stored
+    (a broadcast operand once), the output written once, ``ops_per_lane``
+    32-bit operations a lane (a multiply-add counts two, a digit step of a
+    carry or borrow chain one)."""
+    n_bytes = sum(t.numel() * t.element_size() for t in ins) + \
+        out.numel() * out.element_size()
+    return bench.bound_ms(n_bytes, lanes * ops_per_lane)
+
+
+def digit_planes(spec, shape, gen, corners: bool, wide: bool):
+    """Digit planes [w, *shape] on the card, uniform below p; with
+    ``corners`` the first lanes of the flattened value axes are 0, 1 and
+    p - 1, and with ``wide`` one more is the all-0xFFFF plane (>= p)."""
+    import torch
+
+    from ringo_tpu_torch.fields import limb
+
+    w = spec.w
+    top = spec.p >> (16 * (w - 1))
+    d = torch.randint(0, 1 << 16, (w,) + tuple(shape), generator=gen,
+                      dtype=torch.int64)
+    d[w - 1] = torch.randint(0, top, tuple(shape), generator=gen,
+                             dtype=torch.int64)
+    flat = d.reshape(w, -1)
+    vals = ([0, 1, spec.p - 1] if corners else []) + \
+        ([(1 << (16 * w)) - 1] if wide else [])
+    if vals and flat.shape[1] >= len(vals):
+        flat[:, :len(vals)] = limb.ints_to_digits(vals, w)
+    return d.to("cuda")
+
+
+def bigfield_phase(errs: dict):
+    """The big-field kernel (csrc/bigfield.cu) against its plain versions
+    on the card, exactly: every entry point at each of the seven field
+    widths, with the corner values 0, 1, p - 1 (and the all-0xFFFF plane
+    where the plain version takes values >= p: all but the tree sum),
+    broadcast and sliced operands; then at the cells' shapes: the Horner
+    product and tree sum of the Jindo evaluate at [16, 1, 2^19], the
+    PublicKey ring's [14, t, 2^15], ``reduce_cols`` at ``BigLinMap``'s
+    column counts and the CRT cutoff's ``geq`` of a commit.  Times
+    ``mul_mod`` at [16, 2^19] (kernel, plain version, bound) and each
+    other entry point at a cell's shape beside its bound."""
+    import torch
+
+    from ringo_tpu_torch import fields
+    from ringo_tpu_torch.fields import bigfield, limb
+    from ringo_tpu_torch.ops import horner
+    from ringo_tpu_torch.ops.bigmul import BigMul
+
+    gen = torch.Generator(device="cpu").manual_seed(23)
+    errs["bigfield"] = 0
+
+    def hold(got, want, what):
+        torch.cuda.synchronize()
+        errs["bigfield"] = max(errs["bigfield"], max_abs_err(got, want, what))
+
+    def hold_all(spec, big, x, y, what, canonical: bool):
+        """Every entry point on x, y (broadcasting against each other)."""
+        q = torch.tensor(big.p_digits, device="cuda").reshape(
+            (spec.w,) + (1,) * (x.dim() - 1))
+        hold(big.mul_mod(x, y), big.mul_mod_plain(x, y), f"mul_mod {what}")
+        hold(limb.add(x, y, q), limb.add_plain(x, y, q), f"add {what}")
+        hold(limb.sub(x, y, q), limb.sub_plain(x, y, q), f"sub {what}")
+        hold(limb.neg(x, q), limb.neg_plain(x, q), f"neg {what}")
+        hold(limb.geq(x, y), limb.geq_plain(x, y), f"geq {what}")
+        if canonical and x.dim() > 1:
+            hold(horner.tree_sum(big, x), horner.tree_sum_plain(big, x),
+                 f"tree_sum {what}")
+
+    for name in BIGFIELD_FIELDS:
+        spec = getattr(fields, name)
+        big, w = BigMul(spec), spec.w
+        x = digit_planes(spec, (3, 700), gen, True, True)
+        y = digit_planes(spec, (3, 700), gen, True, True).flip(-1)
+        hold_all(spec, big, x, y, f"{name} [w, 3, 700] with 0xFFFF", False)
+        x = digit_planes(spec, (3, 700), gen, True, False)
+        y = digit_planes(spec, (3, 700), gen, True, False).flip(-1)
+        hold_all(spec, big, x, y, f"{name} [w, 3, 700]", True)
+        # broadcast and sliced operands, as the callers pass them
+        P = digit_planes(spec, (900,), gen, True, False)
+        hold_all(spec, big, x, P[:, None, :700], f"{name} [w, t, n] x [w, 1, n]", True)
+        hold_all(spec, big, P[:, :50], P[:, 7][:, None], f"{name} [w, m] x [w, 1]", True)
+        hold_all(spec, big, x[:, :, None, :40], P[:, None, :30, None],
+                 f"{name} [w, a, 1, c] x [w, 1, b, 1]", True)
+        hold_all(spec, big, x[..., :350], x[..., 350:], f"{name} halves", True)
+        hold_all(spec, big, x.transpose(1, 2), y.transpose(1, 2),
+                 f"{name} transposed", True)
+        hold(horner.tree_sum(big, x[:, :, :1]), horner.tree_sum_plain(big, x[:, :, :1]),
+             f"tree_sum {name} m = 1")
+        hold(horner.tree_sum(big, P), horner.tree_sum_plain(big, P),
+             f"tree_sum {name} [w, m] -> [w]")
+        # reduce_cols: BigLinMap's 2w + 1 columns (< 2^18), a verifier
+        # magnitude's 8 digits, more columns than reach the kept digits,
+        # columns up to 2^23 and all 0xFFFF
+        for m, hi in ((2 * w + 1, 1 << 18), (8, 1 << 16), (4 * w + 3, 1 << 23)):
+            cols = torch.randint(0, hi, (m, 5, 300), generator=gen,
+                                 dtype=torch.int64)
+            cols[:, 0, 0] = 0xFFFF
+            cols[:, 0, 1] = 0
+            cols = cols.to("cuda")
+            hold(big.reduce_cols(cols), big.reduce_cols_plain(cols),
+                 f"reduce_cols {name} m = {m}")
+            hold(big.reduce_cols(cols[:, :, ::2]), big.reduce_cols_plain(cols[:, :, ::2]),
+                 f"reduce_cols {name} m = {m} strided")
+        log(f"bigfield {name} (w = {w}): mul_mod, reduce_cols, tree_sum, add, "
+            "sub, neg, geq equal to plain (corner values, broadcast, sliced)")
+
+    # the cells' shapes
+    passes = []
+
+    def timed_pass(label, fn, plain, ins, lanes, ops):
+        got = fn()
+        hold(got, plain(), label)
+        ms = bench.time_ms(fn)
+        b, by = bigfield_bound(ins, got, lanes, ops)
+        passes.append(dict(label=label, ms=ms, bound_ms=b, bound_by=by))
+        log(f"bigfield {label}: kernel {ms:.4f} ms, bound {b:.4f} ms ({by}), "
+            f"share {b / ms:.3f}, equal to plain")
+        return got
+
+    n = 1 << LOG_N                   # the evaluate's Horner lanes
+    spec = fields.ZP255
+    big, w = BigMul(spec), spec.w
+    x = digit_planes(spec, (n,), gen, True, False)
+    y = digit_planes(spec, (n,), gen, True, False).flip(-1)
+    mm = timed_pass(f"mul_mod ZP255 [16, 2^{LOG_N}]",
+                    lambda: big.mul_mod(x, y), lambda: big.mul_mod_plain(x, y),
+                    (x, y), n, 2 * bigfield_mul_adds(w))
+    plain_ms = bench.time_ms(lambda: big.mul_mod_plain(x, y), reps=3)
+    row = dict(name="bigfield", route="cuda",
+               source="ringo_tpu_torch/csrc/bigfield.cu",
+               replaces="ringo_tpu/ops/bigmul.py:136",
+               ms=passes[0]["ms"], plain_ms=plain_ms,
+               bound_ms=passes[0]["bound_ms"], bound_by=passes[0]["bound_by"],
+               library_ms=None, shape=f"mul_mod [16, 2^{LOG_N}] int64",
+               kernel="bigfield", passes=passes)
+    log(f"bigfield mul_mod [16, 2^{LOG_N}]: plain version {plain_ms:.3f} ms")
+    vs = x[:, None, :]
+    prod = timed_pass(f"mul_mod Horner [16, 1, 2^{LOG_N}] x [16, 1, 2^{LOG_N}]",
+                      lambda: big.mul_mod(vs, mm[:, None, :]),
+                      lambda: big.mul_mod_plain(vs, mm[:, None, :]),
+                      (vs, mm), n, 2 * bigfield_mul_adds(w))
+    timed_pass(f"tree_sum Horner [16, 1, 2^{LOG_N}]",
+               lambda: horner.tree_sum(big, prod),
+               lambda: horner.tree_sum_plain(big, prod), (prod,), n, 2 * w)
+    timed_pass(f"mul_mod powers step [16, 2^{LOG_N - 1}] x [16, 1]",
+               lambda: big.mul_mod(x[:, :n // 2], y[:, 5:6]),
+               lambda: big.mul_mod_plain(x[:, :n // 2], y[:, 5:6]),
+               (x[:, :n // 2], y[:, 5:6]), n // 2, 2 * bigfield_mul_adds(w))
+    q = torch.tensor(big.p_digits, device="cuda").reshape(w, 1)
+    for label, fn, plain in (
+            ("add", lambda: limb.add(x, y, q), lambda: limb.add_plain(x, y, q)),
+            ("sub", lambda: limb.sub(x, y, q), lambda: limb.sub_plain(x, y, q)),
+            ("geq", lambda: limb.geq(x, y), lambda: limb.geq_plain(x, y))):
+        timed_pass(f"{label} ZP255 [16, 2^{LOG_N}]", fn, plain, (x, y, q)
+                   if label != "geq" else (x, y), n, 2 * w)
+    timed_pass(f"neg ZP255 [16, 2^{LOG_N}]", lambda: limb.neg(x, q),
+               lambda: limb.neg_plain(x, q), (x, q), n, 2 * w)
+    del x, y, mm, vs, prod
+    # the PublicKey ring (ZP220, rank 2^15): Horner over t polynomials,
+    # the embedding NTT's reduce_cols at BigLinMap's 2w + 1 columns
+    spec = fields.ZP220
+    big, w = BigMul(spec), spec.w
+    t, nr = 4, 1 << 15
+    v = digit_planes(spec, (t, nr), gen, True, False)
+    P = digit_planes(spec, (nr,), gen, True, False)
+    prod = timed_pass(f"mul_mod ZP220 [14, {t}, 2^15] x [14, 1, 2^15]",
+                      lambda: big.mul_mod(v, P[:, None, :]),
+                      lambda: big.mul_mod_plain(v, P[:, None, :]),
+                      (v, P), t * nr, 2 * bigfield_mul_adds(w))
+    timed_pass(f"tree_sum ZP220 [14, {t}, 2^15]",
+               lambda: horner.tree_sum(big, prod),
+               lambda: horner.tree_sum_plain(big, prod), (prod,), t * nr, 2 * w)
+    cols = torch.randint(0, 1 << 18, (2 * w + 1, 32, 2048), generator=gen,
+                         dtype=torch.int64).to("cuda")
+    timed_pass(f"reduce_cols ZP220 [{2 * w + 1}, 32, 2048]",
+               lambda: big.reduce_cols(cols), lambda: big.reduce_cols_plain(cols),
+               (cols,), 32 * 2048, 2 * (bigfield_mul_adds(w) - w * w + 3 * w))
+    # the CRT cutoff of a commit: geq of 8-digit magnitudes [8, 28, 256]
+    # against [8, 1, 1] (a digit count that is no field's)
+    a = torch.randint(0, 1 << 16, (8, 28, 256), generator=gen,
+                      dtype=torch.int64).to("cuda")
+    half = torch.randint(0, 1 << 16, (8, 1, 1), generator=gen,
+                         dtype=torch.int64).to("cuda")
+    timed_pass("geq CRT cutoff [8, 28, 256] x [8, 1, 1]",
+               lambda: limb.geq(a, half), lambda: limb.geq_plain(a, half),
+               (a, half), 28 * 256, 8)
+    del v, P, prod, cols, a
+    torch.cuda.empty_cache()
+    if bigfield.WIDTHS != tuple(getattr(fields, f).w for f in BIGFIELD_FIELDS):
+        raise AssertionError("bigfield: the phase does not cover every width")
+    return row
+
+
 # -------------------------------------------------------------- slice phase
 
 def random_values(spec, n: int, seed: int):
@@ -710,10 +929,10 @@ def roundtrip_phase(backend, jindo, params, checked, prv, v, com, op):
     vf_launches = dict(backend.LAUNCHES)
     if ok is not True:
         raise AssertionError("verify rejected an honest proof")
-    for name, n in (("evaluate", ev_launches["ntt"]),
-                    ("verify", vf_launches["ntt"])):
-        if n <= 0:
-            raise AssertionError(f"the NTT kernel was not launched in {name}")
+    for name, launched in (("evaluate", ev_launches), ("verify", vf_launches)):
+        for k in ("ntt", "bigfield"):
+            if launched[k] <= 0:
+                raise AssertionError(f"kernel {k} was not launched in {name}")
     ev_med, vf_med = statistics.median(ev_times), statistics.median(vf_times)
     log(f"evaluate N=2^{LOG_N}: times {ev_times} s, median {ev_med:.4f} s, "
         f"peak {ev_peak:.3f} GiB (held before: {held:.3f} GiB), NTT launches "
@@ -1083,8 +1302,9 @@ def buckler_phase(backend, point, checked: set, errs: dict, gen, rng,
     for k in backend.KERNELS:
         if prove_launches[k] <= 0:
             raise AssertionError(f"{label}: kernel {k} not launched in prove")
-    if verify_launches["ntt"] <= 0:
-        raise AssertionError(f"{label}: the NTT kernel not launched in verify")
+    for k in ("ntt", "bigfield"):
+        if verify_launches[k] <= 0:
+            raise AssertionError(f"{label}: kernel {k} not launched in verify")
     log(f"{label}: first prove {first_prove_s:.3f} s (peak "
         f"{first_prove_peak:.3f} GiB, launches {first_prove_launches}), first "
         f"verify {first_verify_s:.3f} s (peak {first_verify_peak:.3f} GiB, "
@@ -1470,6 +1690,8 @@ def main() -> int:
     phase = lambda what: log(f"-- {what} (at {time.perf_counter() - t_start:.1f} s)")
     phase("AES phase")
     rows.append(aes_phase(params, errs))
+    phase("big-field phase")
+    rows.append(bigfield_phase(errs))
     phase("commit phase")
     slice_rec, held = commit_phase(backend, jindo, params, checked)
     phase("round-trip phase")

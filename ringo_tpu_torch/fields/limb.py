@@ -8,7 +8,10 @@ wraparound (``(s >> 31) & 1``), a lane here simply goes negative, so the
 borrow is a sign test.
 
 Counterpart of ``ringo_tpu.fields.limb``; the results are bit-identical
-(tests/test_torch_limb.py).
+(tests/test_torch_limb.py).  On the card ``add``, ``sub``, ``neg`` and
+``geq`` are one launch each of csrc/bigfield.cu (fields/bigfield.py); the
+``*_plain`` functions are what the CPU runs and what the kernel is held
+against.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import bigfield
 from .spec import DIGIT_BITS, DIGIT_MASK
 
 
@@ -62,20 +66,39 @@ def _cond_sub_q(t, top, q):
 
 
 def add(a, b, q):
-    """(a + b) mod q for normalized inputs."""
+    """(a + b) mod q for normalized inputs: one launch of csrc/bigfield.cu
+    on the card, the plain version on the CPU."""
+    if bigfield.on_card(a):
+        return bigfield.add_cuda(a, b, _as_tensor(q, a))
+    return add_plain(a, b, q)
+
+
+def add_plain(a, b, q):
     t, carry = _add_carry(_unstack(a), _unstack(b))
     return torch.stack(_cond_sub_q(t, carry, _unstack(_as_tensor(q, a))))
 
 
 def sub(a, b, q):
-    """(a - b) mod q for normalized inputs."""
+    """(a - b) mod q for normalized inputs (the kernel on the card)."""
+    if bigfield.on_card(a):
+        return bigfield.sub_cuda(a, b, _as_tensor(q, a))
+    return sub_plain(a, b, q)
+
+
+def sub_plain(a, b, q):
     diff, borrow = _sub_borrow(_unstack(a), _unstack(b))
     fixed, _ = _add_carry(diff, _unstack(_as_tensor(q, a)))
     return torch.stack(_select(borrow != 0, fixed, diff))
 
 
 def neg(a, q):
-    """(-a) mod q."""
+    """(-a) mod q (the kernel on the card)."""
+    if bigfield.on_card(a):
+        return bigfield.neg_cuda(a, _as_tensor(q, a))
+    return neg_plain(a, q)
+
+
+def neg_plain(a, q):
     ad = _unstack(a)
     qd = [d + torch.zeros_like(ad[0]) for d in _unstack(_as_tensor(q, a))]
     diff, _ = _sub_borrow(qd, ad)
@@ -92,7 +115,13 @@ def eq(a, b):
 
 
 def geq(a, b):
-    """a >= b as a multi-digit unsigned compare."""
+    """a >= b as a multi-digit unsigned compare (the kernel on the card)."""
+    if bigfield.on_card(a):
+        return bigfield.geq_cuda(a, _as_tensor(b, a))
+    return geq_plain(a, b)
+
+
+def geq_plain(a, b):
     _, borrow = _sub_borrow(_unstack(a), _unstack(_as_tensor(b, a)))
     return borrow == 0
 

@@ -12,6 +12,9 @@ lanes, as in fields/limb.py.  A product is
 Everything is elementwise over the trailing axes and exact, so the results
 equal ``ringo_tpu.ops.bigmul`` digit for digit (tests/test_torch_bigmul.py);
 the JAX package's ``lax.scan``s over the digit count are Python loops here.
+That is the plain version, which the CPU runs: on the card ``mul_mod`` and
+``reduce_cols`` are one launch each of csrc/bigfield.cu
+(fields/bigfield.py), which computes the same digits.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ import functools
 
 import torch
 
-from ..fields import limb
+from ..fields import bigfield, limb
 from ..fields.spec import DIGIT_BITS, DIGIT_MASK, FieldSpec
 
 
@@ -93,9 +96,17 @@ class BigMul:
         self.p_ext = _digits(spec.p, w + 2)
         # B^(2w-1) mod p: folds the digits of reduce_cols above B^(2w-1)
         self.bs_digits = _digits(pow(B, 2 * w - 1, spec.p), w)
+        self.consts = bigfield.consts(self.p_ext, self.mu_digits,
+                                      self.bs_digits)
 
     def mul_mod(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-        """(x * y) mod p for plain digit planes [w, ...]."""
+        """(x * y) mod p for plain digit planes [w, ...]: one launch of
+        csrc/bigfield.cu on the card, the plain version on the CPU."""
+        if bigfield.on_card(x):
+            return bigfield.mul_mod_cuda(self, x, y)
+        return self.mul_mod_plain(x, y)
+
+    def mul_mod_plain(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         return self._barrett(ripple(conv_columns(x, y), 2 * self.w + 1))
 
     def reduce_cols(self, cols: torch.Tensor) -> torch.Tensor:
@@ -104,7 +115,12 @@ class BigMul:
 
         z may exceed the Barrett range B^(2w): the digits above B^(2w-1)
         (a value < 2^32) are folded back with B^(2w-1) mod p, which leaves
-        z' < 2 * B^(2w-1)."""
+        z' < 2 * B^(2w-1).  One launch on the card."""
+        if bigfield.on_card(cols):
+            return bigfield.reduce_cols_cuda(self, cols)
+        return self.reduce_cols_plain(cols)
+
+    def reduce_cols_plain(self, cols: torch.Tensor) -> torch.Tensor:
         s = 2 * self.w - 1
         z = ripple(cols, cols.shape[0] + 1)
         if z.shape[0] <= s:

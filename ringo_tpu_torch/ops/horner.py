@@ -8,7 +8,8 @@ arithmetic (ops/bigmul.py) on the tensors' device:
    products, about n elementwise ones in all (the step scalars x^(2^k)
    are Python ints from the host);
 2. the pointwise products v[i] * P[i] of all polynomials at once;
-3. a balanced tree of modular additions over the coefficient axis.
+3. a balanced tree of modular additions over the coefficient axis (on
+   the card: the two-launch tree sum of csrc/bigfield.cu).
 
 Counterpart of ``ringo_tpu.ops.horner``; equal results
 (tests/test_torch_bigmul.py).
@@ -19,19 +20,26 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..fields import limb
+from ..fields import bigfield, limb
 from ..fields.spec import FieldSpec
 from .bigmul import BigMul
 
 
 def tree_sum(big: BigMul, x: torch.Tensor) -> torch.Tensor:
-    """Sum mod p over the last axis of digit planes [w, ..., m] by
-    halving additions -> [w, ...]."""
+    """Sum mod p over the last axis of digit planes [w, ..., m] -> [w, ...]:
+    csrc/bigfield.cu on the card (canonical values), the plain version's
+    halving additions on the CPU."""
+    if bigfield.on_card(x):
+        return bigfield.tree_sum_cuda(big, x)
+    return tree_sum_plain(big, x)
+
+
+def tree_sum_plain(big: BigMul, x: torch.Tensor) -> torch.Tensor:
     pd = torch.tensor(big.p_digits, dtype=torch.int64, device=x.device
                       ).reshape(big.w, *([1] * (x.dim() - 1)))
     while x.shape[-1] > 1:
         half = x.shape[-1] // 2
-        s = limb.add(x[..., :half], x[..., half:2 * half], pd)
+        s = limb.add_plain(x[..., :half], x[..., half:2 * half], pd)
         x = torch.cat([s, x[..., 2 * half:]], dim=-1)
     return x[..., 0]
 

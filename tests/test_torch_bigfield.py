@@ -1,0 +1,441 @@
+"""The launch side of the big-field kernel (csrc/bigfield.cu,
+ringo_tpu_torch/fields/bigfield.py) on the CPU, where the kernel cannot
+run:
+
+* the seven entry points on CPU tensors run their plain versions and never
+  load the kernel library;
+* the operand layout the kernel reads (shape, digit and element strides)
+  against ``torch.broadcast_tensors`` for every broadcasting caller and for
+  sliced views;
+* the wrappers' argument checks, and that a wrapper given CPU tensors
+  raises instead of falling back;
+* the kernel's per-lane steps, written out in Python ints as the CUDA
+  source runs them (product scanning, the fold of reduce_cols, Barrett,
+  the tree sum's order, the limb chains in two passes), against the plain
+  versions on ZP110, ZP255 and ZP880, corner values included.
+
+Exact equality throughout."""
+
+import random
+
+import numpy as np
+import pytest
+import torch
+
+from ringo_tpu_torch import backend
+from ringo_tpu_torch.fields import ZP110, ZP255, ZP880, bigfield, limb
+from ringo_tpu_torch.ops import horner
+from ringo_tpu_torch.ops.bigmul import BigMul
+
+FIELDS = {"zp110": ZP110, "zp255": ZP255, "zp880": ZP880}
+MASK = 0xFFFF
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _values(spec, n, seed):
+    """n random field elements, then 0, 1, p-1."""
+    rng = random.Random(seed)
+    return [rng.randrange(spec.p) for _ in range(n)] + [0, 1, spec.p - 1]
+
+
+def _planes(spec, values):
+    return limb.ints_to_digits(values, spec.w)
+
+
+# ------------------------------------------------ CPU tensors: plain path
+
+def test_cpu_tensors_run_the_plain_versions(monkeypatch):
+    def no_library():
+        raise AssertionError("the kernel library was loaded for CPU tensors")
+
+    monkeypatch.setattr(backend, "lib", no_library)
+    before = backend.LAUNCHES["bigfield"]
+    spec = ZP255
+    big = BigMul(spec)
+    p = spec.p
+    xs, ys = _values(spec, 9, 1), list(reversed(_values(spec, 9, 2)))
+    x, y = _planes(spec, xs), _planes(spec, ys)
+    pd = _planes(spec, [p])
+
+    got = big.mul_mod(x, y)
+    assert torch.equal(got, big.mul_mod_plain(x, y))
+    assert limb.digits_to_ints(got) == [a * b % p for a, b in zip(xs, ys)]
+
+    rng = np.random.default_rng(3)
+    cols = torch.from_numpy(rng.integers(0, 1 << 18, (2 * spec.w + 1, 5)))
+    assert torch.equal(big.reduce_cols(cols), big.reduce_cols_plain(cols))
+
+    xt = x.reshape(spec.w, 3, 4)
+    got = horner.tree_sum(big, xt)
+    assert torch.equal(got, horner.tree_sum_plain(big, xt))
+    assert limb.digits_to_ints(got) == [sum(xs[4 * r:4 * r + 4]) % p
+                                        for r in range(3)]
+
+    assert limb.digits_to_ints(limb.add(x, y, pd)) == [
+        (a + b) % p for a, b in zip(xs, ys)]
+    assert torch.equal(limb.add(x, y, pd), limb.add_plain(x, y, pd))
+    assert limb.digits_to_ints(limb.sub(x, y, pd)) == [
+        (a - b) % p for a, b in zip(xs, ys)]
+    assert torch.equal(limb.sub(x, y, pd), limb.sub_plain(x, y, pd))
+    assert limb.digits_to_ints(limb.neg(x, pd)) == [(-a) % p for a in xs]
+    assert torch.equal(limb.neg(x, pd), limb.neg_plain(x, pd))
+    assert limb.geq(x, y).tolist() == [a >= b for a, b in zip(xs, ys)]
+    assert torch.equal(limb.geq(x, y), limb.geq_plain(x, y))
+    assert backend.LAUNCHES["bigfield"] == before
+
+
+# ------------------------------------------------------- operand layout
+
+def _w(*shape):
+    return torch.arange(int(np.prod(shape)), dtype=torch.int64).reshape(shape)
+
+
+def _layout_cases():
+    w = 3
+    P = _w(w, 40)                       # a powers table, sliced below
+    yield "horner powers [w, m] x [w, 1]", (_w(w, 8), _w(w, 5)[:, 2][:, None])
+    yield "horner products [w, t, n] x [w, 1, n]", (_w(w, 2, 16), P[:, None, :16])
+    yield "linear [w, a, 1] x [w, 1, b]", (_w(w, 4, 1), _w(w, 1, 6))
+    yield "linear sliced v[:, :nv, None] x base[:, None, :]", (
+        _w(w, 10)[:, :4, None], _w(w, 5)[:, None, :])
+    g = _w(w, 2, 6, 4).transpose(-1, -2)           # [.., n1, n2] transposed
+    yield "bigntt_matmul grid, transposed", (g, _w(w, 4, 6).reshape(w, 1, 4, 6))
+    yield "bigntt_matmul twist [w, *batch, n] x [w, 1, n]", (
+        _w(w, 3, 2, 8), _w(w, 8).reshape(w, 1, 1, 8))
+    x = _w(w, 2, 9)
+    yield "tree halves x[..., :h], x[..., h:2h], q [w, 1, 1]", (
+        x[..., :4], x[..., 4:8], _w(w, 1, 1))
+    yield "modsum narrow on a middle axis", (
+        _w(w, 7, 3).narrow(1, 0, 3), _w(w, 7, 3).narrow(1, 3, 3), _w(w, 1, 1))
+    yield "q [w] against values [w, a, b]", (_w(w, 2, 3), _w(w))
+    yield "scalars [w]", (_w(w), _w(w))
+    yield "five value dims that merge", (_w(w, 2, 3, 2, 2, 5), _w(w, 1, 1, 1, 1, 5))
+    yield "rows of a tree sum x[..., 0]", (_w(w, 3, 5, 7).transpose(1, 2)[..., 0],)
+
+
+@pytest.mark.parametrize("label,ops", list(_layout_cases()),
+                         ids=[c[0] for c in _layout_cases()])
+def test_operand_layout_matches_broadcast_tensors(label, ops):
+    vshape, n, shape4, per_op = bigfield.operand_layout(*ops)
+    want = torch.broadcast_tensors(*(t[0] for t in ops))
+    assert vshape == tuple(want[0].shape)
+    assert n == want[0].numel()
+    assert len(shape4) == bigfield.MAX_DIMS and np.prod(shape4) == n
+    for t, (dstride, strides), full in zip(ops, per_op, want):
+        assert dstride == t.stride(0)
+        got = torch.as_strided(t, [t.shape[0]] + shape4, [dstride] + strides,
+                               t.storage_offset())
+        ref = torch.stack([t[j].expand(vshape) for j in range(t.shape[0])])
+        assert torch.equal(got, ref.reshape([t.shape[0]] + shape4)), label
+        assert torch.equal(got[0].reshape(vshape), full)
+
+
+def test_operand_layout_refuses_more_than_four_dims():
+    a = _w(2, 2, 3, 2, 3, 2)
+    b = _w(2, 1, 3, 1, 3, 1)        # broadcast on alternate axes: no merge
+    with pytest.raises(ValueError, match="dims after merging"):
+        bigfield.operand_layout(a, b)
+
+
+# --------------------------------------------------- wrappers' arguments
+
+@pytest.mark.parametrize("case", ["dtype", "width", "digits", "geq digits",
+                                  "cpu tensor"])
+def test_wrappers_check_their_arguments(case, monkeypatch):
+    def no_library():
+        raise AssertionError("the kernel library was loaded")
+
+    monkeypatch.setattr(backend, "lib", no_library)
+    big = BigMul(ZP255)
+    x = _planes(ZP255, _values(ZP255, 3, 4))
+    pd = _planes(ZP255, [ZP255.p])
+    if case == "dtype":
+        for fn in (lambda: bigfield.mul_mod_cuda(big, x.to(torch.int32), x),
+                   lambda: bigfield.add_cuda(x, x, pd.to(torch.int32)),
+                   lambda: bigfield.geq_cuda(x.to(torch.int32), x)):
+            with pytest.raises(TypeError, match="int64"):
+                fn()
+    elif case == "width":
+        odd = BigMul(ZP255)
+        odd.w = 12
+        for fn in (lambda: bigfield.mul_mod_cuda(odd, x, x),
+                   lambda: bigfield.reduce_cols_cuda(odd, x),
+                   lambda: bigfield.tree_sum_cuda(odd, x)):
+            with pytest.raises(ValueError, match="not a field width"):
+                fn()
+    elif case == "digits":
+        for fn in (lambda: bigfield.mul_mod_cuda(big, x[:15], x[:15]),
+                   lambda: bigfield.add_cuda(x, x[:15], pd),
+                   lambda: bigfield.sub_cuda(x, x, pd[:15]),
+                   lambda: bigfield.neg_cuda(x, pd[:15])):
+            with pytest.raises(ValueError, match="digit planes"):
+                fn()
+    elif case == "geq digits":
+        with pytest.raises(ValueError, match="expected 16 digit planes, got 3"):
+            bigfield.geq_cuda(x, x[:3])
+    else:
+        # right arguments on the CPU: the wrapper raises, it does not fall back
+        for fn in (lambda: bigfield.mul_mod_cuda(big, x, x),
+                   lambda: bigfield.reduce_cols_cuda(big, x),
+                   lambda: bigfield.tree_sum_cuda(big, x),
+                   lambda: bigfield.add_cuda(x, x, pd),
+                   lambda: bigfield.sub_cuda(x, x, pd),
+                   lambda: bigfield.neg_cuda(x, pd),
+                   lambda: bigfield.geq_cuda(x, x)):
+            with pytest.raises(ValueError, match="on the card"):
+                fn()
+
+
+# ------------------------------------ the kernel's steps in Python ints
+
+def _k_consts(big):
+    c = [int(v) for v in big.consts]
+    w = big.w
+    return c[:w + 2], c[w + 2:2 * w + 4], c[2 * w + 4:]
+
+
+def _k_barrett(w, z, p, mu):
+    """barrett<W> of csrc/bigfield.cu on the 2w+1 digits z."""
+    qh, acc = [0] * (w + 1), 0
+    for col in range(2 * w + 2):
+        for i in range(w + 2):
+            j = col - i
+            if 0 <= j < w + 2:
+                acc += z[w - 1 + i] * mu[j]
+        if col >= w + 1:
+            qh[col - w - 1] = acc & MASK
+        acc >>= 16
+    r, acc, borrow = [0] * (w + 2), 0, 0
+    for col in range(w + 2):
+        for i in range(w + 1):
+            j = col - i
+            if 0 <= j < w:
+                acc += qh[i] * p[j]
+        s = z[col] - (acc & MASK) - borrow
+        acc >>= 16
+        r[col], borrow = s & MASK, int(s < 0)
+    for _ in range(2):
+        d, borrow = [0] * (w + 2), 0
+        for j in range(w + 2):
+            s = r[j] - p[j] - borrow
+            d[j], borrow = s & MASK, int(s < 0)
+        if not borrow:
+            r = d
+    return r[:w]
+
+
+def _k_mul_mod(big, x, y):
+    """mul_mod_kernel<W> on one lane's digit lists."""
+    w = big.w
+    p, mu, _ = _k_consts(big)
+    z, acc = [0] * (2 * w + 1), 0
+    for col in range(2 * w):
+        for k in range(w):
+            j = col - k
+            if 0 <= j < w:
+                acc += x[k] * y[j]
+        z[col] = acc & MASK
+        acc >>= 16
+    z[2 * w] = acc & MASK
+    return _k_barrett(w, z, p, mu)
+
+
+def _k_reduce_cols(big, col):
+    """reduce_cols_kernel<W> on one lane's column list."""
+    w, m = big.w, len(col)
+    p, mu, bs = _k_consts(big)
+    S = 2 * w - 1
+    lo, hi, carry = [0] * S, [0] * (2 * w + 1), 0
+    for j in range(S + 2 * w + 1):
+        d = 0
+        if j < m:
+            s = col[j] + carry
+            d, carry = s & MASK, s >> 16
+        elif j == m:
+            d = carry & MASK
+        if j < S:
+            lo[j] = d
+        else:
+            hi[j - S] = d
+    z, acc = [0] * (2 * w + 1), 0
+    for k in range(2 * w + 1):
+        if k < S:
+            acc += lo[k]
+        if m + 1 > S:
+            for t in range(2 * w + 1):
+                j = k - t
+                if 0 <= j < w:
+                    acc += hi[t] * bs[j]
+        z[k] = acc & MASK
+        acc >>= 16
+    return _k_barrett(w, z, p, mu)
+
+
+def _lanes(t):
+    """[d, n] planes -> n digit lists."""
+    return t.T.tolist()
+
+
+def _corner_planes(spec, n, seed):
+    """Random field elements, 0, 1, p-1 and the all-0xFFFF digit plane."""
+    vals = _values(spec, n, seed) + [(1 << (16 * spec.w)) - 1]
+    return _planes(spec, vals)
+
+
+@pytest.mark.parametrize("name", FIELDS)
+def test_kernel_steps_mul_mod(name):
+    spec = FIELDS[name]
+    big = BigMul(spec)
+    x = _corner_planes(spec, 12, 5)
+    y = _corner_planes(spec, 12, 6).flip(1)
+    want = big.mul_mod_plain(x, y)
+    got = [_k_mul_mod(big, a, b) for a, b in zip(_lanes(x), _lanes(y))]
+    assert got == _lanes(want)
+
+
+@pytest.mark.parametrize("name,m", [("zp110", 15), ("zp110", 3), ("zp110", 40),
+                                    ("zp255", 33), ("zp255", 31),
+                                    ("zp880", 111)])
+def test_kernel_steps_reduce_cols(name, m):
+    """biglinmap's count 2w+1, fewer columns than the fold needs, and more
+    than reach the kept digits; columns up to 2^23 and the all-0xFFFF
+    ones."""
+    spec = FIELDS[name]
+    big = BigMul(spec)
+    rng = np.random.default_rng(m)
+    cols = rng.integers(0, 1 << 23, (m, 10))
+    cols[:, 0] = MASK
+    cols[:, 1] = 0
+    cols = torch.from_numpy(cols)
+    want = big.reduce_cols_plain(cols)
+    assert [_k_reduce_cols(big, c) for c in _lanes(cols)] == _lanes(want)
+
+
+def _k_add_mod(a, v, p):
+    """add_mod<W>: canonical a + v mod p."""
+    t, d, carry, borrow = [], [], 0, 0
+    for j in range(len(a)):
+        s = a[j] + v[j] + carry
+        t.append(s & MASK)
+        carry = s >> 16
+        e = t[j] - p[j] - borrow
+        d.append(e & MASK)
+        borrow = int(e < 0)
+    return d if carry or not borrow else t
+
+
+def _k_block_sum(vals, p):
+    """block_sum<W>: shuffle-down trees in each warp, then over the warps'
+    sums; the result of thread 0."""
+    def warp(v):
+        v = list(v)
+        for sh in (16, 8, 4, 2, 1):
+            v = [_k_add_mod(v[l], v[l + sh] if l + sh < 32 else v[l], p)
+                 for l in range(32)]
+        return v[0]
+    zero = [0] * len(p)
+    sums = [warp(vals[k:k + 32]) for k in range(0, len(vals), 32)]
+    return warp(sums + [zero] * (32 - len(sums)))
+
+
+def _k_tree_sum(big, row):
+    """tree_sum_partials then tree_sum_rows on one row of digit lists."""
+    p = _k_consts(big)[0][:big.w]
+    T, m = bigfield.SUM_THREADS, len(row)
+    parts = bigfield.sum_parts(1, m)
+    zero = [0] * big.w
+    partials = []
+    for part in range(parts):
+        acc = [zero] * T
+        for tid in range(T):
+            for e in range(part * T + tid, m, parts * T):
+                acc[tid] = _k_add_mod(acc[tid], row[e], p)
+        partials.append(_k_block_sum(acc, p))
+    acc = [zero] * T
+    for tid in range(T):
+        for e in range(tid, parts, T):
+            acc[tid] = _k_add_mod(acc[tid], partials[e], p)
+    return _k_block_sum(acc, p)
+
+
+@pytest.mark.parametrize("name,m", [("zp110", 1), ("zp110", 2600),
+                                    ("zp255", 700), ("zp880", 40)])
+def test_kernel_steps_tree_sum(name, m):
+    """The kernel's order of modular additions gives the plain version's
+    digits for canonical values (0 and p-1 among them)."""
+    spec = FIELDS[name]
+    big = BigMul(spec)
+    vals = _values(spec, max(m - 3, 0), m)[-m:]
+    x = _planes(spec, vals)
+    want = horner.tree_sum_plain(big, x[:, None, :])[:, 0]
+    assert _k_tree_sum(big, _lanes(x)) == want.tolist()
+    assert limb.digits_to_ints(want[:, None]) == [sum(vals) % spec.p]
+
+
+def _k_limb(op, a, b, q):
+    """limb_kernel on one lane: the plain chains in two passes."""
+    w = len(a)
+    if op == "add":
+        carry = borrow = 0
+        for j in range(w):
+            s = a[j] + b[j] + carry
+            carry = s >> 16
+            borrow = int((s & MASK) - q[j] - borrow < 0)
+        use_d = carry != 0 or borrow == 0
+        out, carry, borrow = [], 0, 0
+        for j in range(w):
+            s = a[j] + b[j] + carry
+            carry = s >> 16
+            e = (s & MASK) - q[j] - borrow
+            borrow = int(e < 0)
+            out.append(e & MASK if use_d else s & MASK)
+        return out
+    if op == "sub":
+        borrow = 0
+        for j in range(w):
+            borrow = int(a[j] - b[j] - borrow < 0)
+        fix = borrow != 0
+        out, carry, borrow = [], 0, 0
+        for j in range(w):
+            s = a[j] - b[j] - borrow
+            borrow = int(s < 0)
+            f = (s & MASK) + q[j] + carry
+            carry = f >> 16
+            out.append(f & MASK if fix else s & MASK)
+        return out
+    if op == "neg":
+        zero = all(d == 0 for d in a)
+        out, borrow = [], 0
+        for j in range(w):
+            s = q[j] - a[j] - borrow
+            borrow = int(s < 0)
+            out.append(0 if zero else s & MASK)
+        return out
+    borrow = 0
+    for j in range(w):
+        borrow = int(a[j] - b[j] - borrow < 0)
+    return borrow == 0
+
+
+@pytest.mark.parametrize("op", ["add", "sub", "neg", "geq"])
+@pytest.mark.parametrize("name", FIELDS)
+def test_kernel_steps_limb(op, name):
+    spec = FIELDS[name]
+    a = _corner_planes(spec, 10, 7)
+    b = _corner_planes(spec, 10, 8).flip(1)
+    q = _planes(spec, [spec.p])
+    qs = q.expand(-1, a.shape[1])
+    want = {"add": lambda: limb.add_plain(a, b, q),
+            "sub": lambda: limb.sub_plain(a, b, q),
+            "neg": lambda: limb.neg_plain(a, q),
+            "geq": lambda: limb.geq_plain(a, b)}[op]()
+    got = [_k_limb(op, x, y, z)
+           for x, y, z in zip(_lanes(a), _lanes(b), _lanes(qs))]
+    assert got == (want.tolist() if op == "geq" else _lanes(want))
