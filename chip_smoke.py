@@ -25,6 +25,20 @@
    keystream, an unaligned start block, a carry out of the counter's low
    64 bits and the 2^128 wrap, and on the SP 800-38A F.5.5 vector; kernel,
    kernel plus copy to the host and numpy timed beside the bound;
+2a'. AES fold phase: the kernel's fold entry (the samplers' refills folded
+   on the card, ``fold_cuda``) against ``fold_plain`` over the numpy
+   keystream and against a sampler's numpy ``_take_bytes``, exact, at one
+   refill, a commit's 8.36 MB, two launches, an unaligned start, the
+   counter's low-64 carry and the 2^128 wrap; timed beside its bound;
+2a''. Gaussian phase: COSAC draws on the card (csrc/gaussian.cu fed by the
+   fold) equal to the numpy sampler at the N = 2^19 commit's 147,712 lanes,
+   the PublicKey commit's 35,328, bfv's sigmas and once with a margin wide
+   enough that the host rule settles thousands of lanes; the noise mask's
+   10,752 lanes; every kernel step replayed through the plain version on
+   the card, exact; the draw, the numpy sampler and each op timed, host
+   syncs counted.  The commits, evaluates and Buckler proves below fail
+   unless they launched it, and the commit fails if a COSAC or noise-mask
+   sampler copied keystream to the host;
 2b. big-field phase: the big-field kernel (csrc/bigfield.cu: mul_mod,
    reduce_cols, tree_sum, limb add/sub/neg/geq) against the plain versions
    on the card, exactly, at all seven field widths with the corner values
@@ -566,6 +580,241 @@ def aes_phase(params, errs: dict):
                 shape=f"{w['blocks']} counter blocks", kernel="aes")
 
 
+FOLD_CHUNKS_COMMIT = 1020    # 8 KiB chunks of a commit's 8.36 MB of COSAC keystream
+FOLD_CHUNKS_DRAW = 145       # the largest single draw of that commit (147,712 u64)
+
+
+def fold_bound(m: int, shift: int):
+    """Least time of m folded refills: the carry read, m chunks written,
+    the AES of the counter blocks they cover and 4 XORs a 16-byte column."""
+    blocks = 512 * m + (1 if shift else 0)
+    return bench.bound_ms(8192 * (m + 1) + 256,
+                          AES_OPS_PER_BLOCK * blocks + 4 * 512 * m)
+
+
+def fold_phase(row: dict, errs: dict) -> None:
+    """The AES kernel's fold entry (``fold_cuda``) against ``fold_plain``
+    on the card over the numpy keystream and against a sampler's numpy
+    ``_take_bytes``, exact bytes: one refill, a commit's 8.36 MB in one
+    draw, more than one launch's 8 MiB, an unaligned start, a counter that
+    carries out of its low 64 bits and the 2^128 wrap.  Times the fold
+    kernel (CUDA events) at one refill, the commit's largest draw and its
+    8.36 MB beside the bound, the plain version on the card, and the host
+    path it replaces (keystream copied back, folded by numpy)."""
+    import torch
+
+    from ringo_tpu_torch.csprng import uniform
+
+    rng = np.random.default_rng(22)
+    rk = uniform.expand_key_256(rng.bytes(32))
+    iv = int.from_bytes(rng.bytes(16), "big")
+    carry_np = rng.integers(0, 256, uniform.BUF_SIZE, dtype=np.uint8)
+    carry = torch.from_numpy(carry_np).to("cuda")
+    cases = [("one refill", iv, 0, 1),
+             ("commit 8.36 MB", iv, 0, FOLD_CHUNKS_COMMIT),
+             ("two launches", iv, 16 * 999, 1500),
+             ("unaligned start", iv, 16 * 12345 + 7, 37),
+             ("low-64 carry", (7 << 64) | ((1 << 64) - 300), 9, 3),
+             ("2^128 wrap", (1 << 128) - 300, 0, 3)]
+    for label, v, pos, m in cases:
+        out = torch.empty(m * uniform.BUF_SIZE, dtype=torch.uint8, device="cuda")
+        uniform.fold_cuda(rk, v, pos, carry, out)
+        nb = -(-(pos % 16 + m * uniform.BUF_SIZE) // 16)
+        ks = uniform.ctr_keystream(rk, v, pos // 16, nb)[pos % 16:][:m * uniform.BUF_SIZE]
+        want = uniform.fold_plain(carry, torch.from_numpy(ks).to("cuda"))
+        errs["aes"] = max(errs["aes"], max_abs_err(out, want, f"fold {label}"))
+        # a sampler's device draw against its numpy refills
+        host = uniform.UniformSampler(b"fold " + label.encode(), device="cuda")
+        dev = uniform.UniformSampler(b"fold " + label.encode(), device="cuda")
+        for smp in (host, dev):
+            smp._iv = v
+            smp.read(bytes(pos))
+            smp._take_bytes(5)
+        n = m * uniform.BUF_SIZE - 3
+        got = dev._take_bytes_device(n)
+        errs["aes"] = max(errs["aes"], max_abs_err(
+            got, torch.from_numpy(host._take_bytes(n)).to("cuda"),
+            f"fold sampler {label}"))
+        if dev._ptr != host._ptr or dev._consumed != host._consumed or \
+                not np.array_equal(dev._host_buf(), host._host_buf()):
+            raise AssertionError(f"fold {label}: sampler state differs")
+        log(f"aes fold {label}: {m} chunks from byte {pos}, equal to "
+            f"fold_plain and to numpy _take_bytes")
+    for label, m in (("one refill", 1), ("commit's largest draw", FOLD_CHUNKS_DRAW),
+                     ("commit 8.36 MB", FOLD_CHUNKS_COMMIT)):
+        out = torch.empty(m * uniform.BUF_SIZE, dtype=torch.uint8, device="cuda")
+        ms = bench.time_ms(lambda: uniform.fold_cuda(rk, iv, 0, carry, out))
+        ks = torch.from_numpy(uniform.ctr_keystream(rk, iv, 0, 512 * m)).to("cuda")
+        plain_ms = bench.time_ms(lambda: uniform.fold_plain(carry, ks))
+        smp = uniform.UniformSampler(b"fold timing", device="cuda")
+        host_path_ms = host_ms(lambda: smp._take_bytes(m * uniform.BUF_SIZE), 5)
+        b, by = fold_bound(m, 0)
+        row["passes"].append(dict(label=f"fold {label}", chunks=m, ms=ms,
+                                  plain_ms=plain_ms, host_path_ms=host_path_ms,
+                                  bound_ms=b, bound_by=by))
+        log(f"aes fold {label}: {m} chunks ({8192 * m} bytes): kernel "
+            f"{ms:.4f} ms, bound {b:.4f} ms ({by}), share {b / ms:.3f}; "
+            f"fold_plain on the card {plain_ms:.4f} ms (keystream given); "
+            f"the host path (kernel keystream, copy back, numpy fold) "
+            f"{host_path_ms:.3f} ms")
+        del out, ks
+
+
+# Gaussian wavefront: bytes of each step's lane (inputs read once, outputs
+# written once) and its float64 operations, an exp or a log counted as
+# EXP_LOG_OPS (a range reduction and a polynomial); the operations over the
+# H100's float64 rate outside the tensor cores (NVIDIA's data sheet, SXM)
+EXP_LOG_OPS = 20
+FP64_OPS_PER_S = 33.5e12
+GAUSS_WORK = {"zig": (17, 4), "wedge": (33, 6 + EXP_LOG_OPS),
+              "tail": (25, 6 + 2 * EXP_LOG_OPS), "direct": (25, 8 + EXP_LOG_OPS),
+              "cosac": (65, 14 + EXP_LOG_OPS), "round": (41, 4)}
+
+
+def gauss_bound(op: str, n: int):
+    per_byte, per_op = GAUSS_WORK[op]
+    return bench.bound_ms(per_byte * n + 3 * 1024, per_op * n,
+                          ops_rate=FP64_OPS_PER_S)
+
+
+def cosac_lanes(params, label: str):
+    """Centres and sigmas of one commitment's COSAC cells: cols blind
+    cells, rows - 1 mask cells and the mask-blind cell, 256 lanes each."""
+    p = params
+    d = p.degree
+    sig = np.concatenate([np.full(p.cols * d, p.ecd_blind_std_dev),
+                          np.full((p.rows - 1) * d, p.mask_std_dev),
+                          np.full(d, p.mask_blind_std_dev)])
+    rng = np.random.default_rng(len(label))
+    return rng.uniform(-2.5, 2.5, len(sig)), sig
+
+
+def gauss_phase(params, params_pk, errs: dict):
+    """The Gaussian kernel (csrc/gaussian.cu) at the commit's shapes.  A
+    COSAC draw on the card (``sample_device``: the kernel fed by the fold)
+    equals the numpy sampler of the same seed at the N = 2^19 commit's
+    147,712 lanes, the PublicKey commit's 35,328, bfv's sigmas 4.79 and
+    6.77 and, with a margin of 2^-3, the commit's lanes again (thousands
+    settled by the host rule); the noise mask's 10,752 lanes of
+    ``RoundedGaussianSampler.sample_device`` likewise.  Every kernel step
+    of those draws is replayed through ``gauss_plain`` on the card, exact.
+    Times the draw (host clock, syncs counted), the numpy sampler, and
+    each op's kernel and plain version at its largest step."""
+    import torch
+
+    from ringo_tpu_torch.csprng import gaussian
+
+    errs["gauss"] = 0
+    steps = []
+    cuda_step = gaussian.gauss_cuda
+
+    def record(op, n, **ins):
+        before = {k: v.clone() for k, v in ins.items() if v is not None}
+        out = cuda_step(op, n, **ins)      # COSAC writes into ins["out"]
+        steps.append((op, n, before, [None if o is None else o.clone()
+                                      for o in out], gaussian.MARGIN))
+        return out
+
+    gaussian.gauss_cuda = record
+    pk_c, pk_s = cosac_lanes(params_pk, "publickey")
+    cm_c, cm_s = cosac_lanes(params, "commit")
+    cases = [("commit", cm_c, cm_s, None),
+             ("PublicKey commit", pk_c, pk_s, None),
+             ("bfv sigmas", pk_c, np.repeat([4.79, 6.77], len(pk_c) // 2), None),
+             ("commit, margin 2^-3", cm_c, cm_s, 2.0 ** -3)]
+    draws = []
+    try:
+        for label, c, sg, margin in cases:
+            saved = gaussian.MARGIN
+            if margin is not None:
+                gaussian.MARGIN = margin
+            settle, settled = gaussian._settle, []
+            gaussian._settle = lambda dec, k, rule, *a, **kw: (
+                settled.append(k), settle(dec, k, rule, *a, **kw))[1]
+            try:
+                seed = b"gauss " + label.encode()
+                dev = gaussian.COSACSampler(seed, device="cuda")
+                sy0, la0, st0 = gaussian.SYNCS, gauss_launches(), len(steps)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = dev.sample_device(torch.from_numpy(c).to("cuda"),
+                                        torch.from_numpy(sg).to("cuda"))
+                torch.cuda.synchronize()
+                card_s = time.perf_counter() - t0
+                syncs = gaussian.SYNCS - sy0
+                launches = gauss_launches() - la0
+                host = gaussian.COSACSampler(seed, device="cpu")
+                t0 = time.perf_counter()
+                want = host.sample(c, sg)
+                numpy_s = time.perf_counter() - t0
+            finally:
+                gaussian.MARGIN = saved
+                gaussian._settle = settle
+            errs["gauss"] = max(errs["gauss"], max_abs_err(
+                got, torch.from_numpy(want).to("cuda"), f"gauss {label}"))
+            if margin is not None and sum(settled) < 100:
+                raise AssertionError("gauss: the wide margin settled too few lanes")
+            draws.append(dict(label=label, lanes=len(c), card_s=card_s,
+                              numpy_s=numpy_s, syncs=syncs, launches=launches,
+                              steps=len(steps) - st0, settled=sum(settled)))
+            log(f"gauss COSAC {label}: {len(c)} lanes equal to numpy; on the "
+                f"card {card_s * 1e3:.2f} ms ({launches} gauss launches, "
+                f"{syncs} host syncs, {sum(settled)} lanes settled on the "
+                f"host), numpy sampler on the CPU {numpy_s * 1e3:.1f} ms")
+        seed = b"gauss noise mask"
+        sd = params.mask_mlwe_std_dev
+        n_mask = (params.mlwe_rank + params.in_msis_rank) * params.degree
+        got = gaussian.RoundedGaussianSampler(seed, device="cuda").sample_device(
+            0.0, sd, n_mask)
+        want = gaussian.RoundedGaussianSampler(seed, device="cpu").sample(
+            0.0, sd, n_mask)
+        errs["gauss"] = max(errs["gauss"], max_abs_err(
+            got, torch.from_numpy(want).to("cuda"), "gauss noise mask"))
+        log(f"gauss noise mask: {n_mask} lanes at sigma {sd} equal to numpy")
+    finally:
+        gaussian.gauss_cuda = cuda_step
+    # every recorded step against the plain version on the same tensors
+    largest, saved = {}, gaussian.MARGIN
+    for op, n, ins, outs, margin in steps:
+        gaussian.MARGIN = margin
+        want = gaussian.gauss_plain(op, n, **ins)
+        gaussian.MARGIN = saved
+        for k, (g, w) in enumerate(zip(outs, want)):
+            if (g is None) != (w is None):
+                raise AssertionError(f"gauss {gaussian.OPS[op]}: output {k}")
+            if g is not None:   # floats compared as their bits
+                bits = lambda t: t.view(torch.int64) if t.is_floating_point() else t
+                errs["gauss"] = max(errs["gauss"], max_abs_err(
+                    bits(g), bits(w), f"gauss {gaussian.OPS[op]} step of {n} lanes"))
+        if n > largest.get(op, (0,))[0] and margin == saved:
+            largest[op] = (n, ins)    # COSAC's timed calls rewrite a copy of out
+    log(f"gauss: {len(steps)} kernel steps equal to gauss_plain on the card")
+    passes = []
+    for op, (n, ins) in sorted(largest.items()):
+        name = gaussian.OPS[op]
+        ms = bench.time_ms(lambda: gaussian.gauss_cuda(op, n, **ins))
+        plain_ms = bench.time_ms(lambda: gaussian.gauss_plain(op, n, **ins))
+        b, by = gauss_bound(name, n)
+        passes.append(dict(op=name, lanes=n, ms=ms, plain_ms=plain_ms,
+                           bound_ms=b, bound_by=by))
+        log(f"gauss {name} at {n} lanes: kernel {ms:.4f} ms, bound {b:.4f} ms "
+            f"({by}), share {b / ms:.3f}; plain {plain_ms:.4f} ms")
+    w = next(p for p in passes if p["op"] == "cosac")
+    return dict(name="gaussian", route="cuda",
+                source="ringo_tpu_torch/csrc/gaussian.cu",
+                replaces="ringo_tpu/csprng/gaussian.py:440",
+                ms=w["ms"], plain_ms=w["plain_ms"], bound_ms=w["bound_ms"],
+                bound_by=w["bound_by"], library_ms=None, passes=passes,
+                draws=draws, shape=f"COSAC step, {w['lanes']} lanes",
+                kernel="gauss")
+
+
+def gauss_launches() -> int:
+    from ringo_tpu_torch import backend
+
+    return backend.LAUNCHES["gauss"]
+
+
 # ----------------------------------------------------------- big-field phase
 
 BIGFIELD_FIELDS = ("ZP110", "ZP128", "ZP220", "ZP240", "ZP255", "ZP440", "ZP880")
@@ -860,10 +1109,23 @@ def commit_phase(backend, jindo, params, checked):
 
     # the peaks below are the commits' own, not the kernel phase's
     held_before = torch.cuda.memory_allocated() / 2 ** 30
+    from ringo_tpu_torch.csprng import gaussian
+
     backend.reset_launches()
+    syncs0 = gaussian.SYNCS
     (com, op), times, peak = timed(lambda: prv.commit(v))
+    syncs = (gaussian.SYNCS - syncs0) / 3
     many, _, peak_many = timed(lambda: prv.commit_many([v, v2]), reps=1)
     launches = dict(backend.LAUNCHES)
+    # the COSAC and noise-mask samplers drew everything on the card: none
+    # of them ever filled its host read-ahead window
+    for name, smp in (("cosac", prv.ecd.cosac.base),
+                      ("cosac rounded", prv.ecd.cosac.rounded.base),
+                      ("noise mask", prv.rounded.base)):
+        if smp._w1 != 0:
+            raise AssertionError(f"the {name} sampler copied keystream to the host")
+    log(f"COSAC path: no keystream copied to the host; {syncs:g} host syncs "
+        f"of the Gaussian wavefront per commit")
     for c, o in [(com, op)] + many:
         check_commitment(params, c, o)
     med = statistics.median(times)
@@ -879,6 +1141,7 @@ def commit_phase(backend, jindo, params, checked):
     rec = dict(log_n=LOG_N, commit_s=times, commit_median_s=med,
                coeffs_per_s=(1 << LOG_N) / med, crs_expand_s=crs_s,
                crs_launches=crs_launches, launches=launches, peak_mem_gib=peak,
+               gauss_syncs_per_commit=syncs,
                peak_mem_many_gib=peak_many, held_before_gib=held_before)
     return rec, (prv, v, com, op)
 
@@ -1667,7 +1930,7 @@ def main() -> int:
     global bench
     try:
         from ringo_tpu_torch import backend, bench, jindo
-        from ringo_tpu_torch.fields import ZP255
+        from ringo_tpu_torch.fields import ZP220, ZP255
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})",
               file=sys.stderr)
@@ -1690,6 +1953,10 @@ def main() -> int:
     phase = lambda what: log(f"-- {what} (at {time.perf_counter() - t_start:.1f} s)")
     phase("AES phase")
     rows.append(aes_phase(params, errs))
+    phase("AES fold phase")
+    fold_phase(rows[-1], errs)
+    phase("Gaussian phase")
+    rows.append(gauss_phase(params, jindo.new_parameters(ZP220, 16512, 9), errs))
     phase("big-field phase")
     rows.append(bigfield_phase(errs))
     phase("commit phase")

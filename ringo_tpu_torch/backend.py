@@ -33,7 +33,7 @@ BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 
-KERNELS = ("ntt", "chacha", "twin", "aes", "bigfield")
+KERNELS = ("ntt", "chacha", "twin", "aes", "bigfield", "gauss")
 LAUNCHES = {k: 0 for k in KERNELS}
 
 
@@ -67,7 +67,9 @@ _SIGNATURES = {
     "ringo_chacha20": "ppiip",
     "ringo_twin_search": "ppppppiip",
     "ringo_aes256_ctr": "ppip",
+    "ringo_aes256_ctr_fold": "pippip",
     "ringo_bigfield": "ippp",
+    "ringo_gauss": "ipp",
 }
 _CT = {"p": ctypes.c_void_p, "i": ctypes.c_int}
 

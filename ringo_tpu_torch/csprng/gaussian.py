@@ -1,10 +1,20 @@
-"""Gaussian samplers: the host samplers of the reference and the device
-twin-CDT search.
+"""Gaussian samplers: the host samplers of the reference, their device
+wavefront, and the device twin-CDT search.
 
 The host samplers (Ziggurat rounding, twin-CDT, COSAC) are the port's own
 numpy copy of ``ringo_tpu.csprng.gaussian``: the same decision rules in the
 same stream order, so each draws exactly what the reference draws.  Each
 takes the device its uniform keystream is drawn on.
+
+``RoundedGaussianSampler.sample_device`` and ``COSACSampler.sample_device``
+draw the same integers on tensors of the sampler's device: a wavefront over
+the pending lanes, each step one launch of csrc/gaussian.cu on a CUDA
+device (``gauss_cuda``) or its plain version in torch on the CPU
+(``gauss_plain``), fed by the uniform sampler's device draws in the numpy
+loop's stream order.  The host reads each step's counts (one sync a step,
+counted in ``SYNCS``) and decides, with the numpy rule on the same draws,
+the few lanes whose exp or log result passed within ``MARGIN`` of its
+threshold.
 
 ``TwinCDTDevice`` is the commit path's search on tensors.  ``twin_search``
 runs the CUDA kernel (csrc/twin_search.cu) on a CUDA tensor and its plain
@@ -22,7 +32,7 @@ import torch
 
 from .. import backend
 from ..fields import limb
-from .uniform import UniformSampler
+from .uniform import UniformSampler, u64_to_unit_float
 
 BLOCK_SIZE = 128
 FLOAT_PREC = 52
@@ -115,6 +125,102 @@ class RoundedGaussianSampler:
         if np.any(np.asarray(std_dev) <= 0):
             raise ValueError("standard deviation not positive")
         return np.round(np.asarray(center) + self.norm_float(count) * std_dev).astype(np.int64)
+
+    def norm_float_device(self, count: int):
+        """``norm_float`` on the sampler's device: (x, src) float64
+        [count].  ``src`` is the uniform draw of a tail lane's accepted
+        ``uu`` (-1 elsewhere; None when no lane came from the tail): a tail
+        x went through this device's log and may differ from numpy's in
+        its last bits, so a later rounding or decision near its threshold
+        recomputes it from ``src``."""
+        base = self.base
+        dev = base.device
+        xs, srcs = [], []
+        filled = 0
+        while filled < count:
+            need = count - filled
+            r = base.sample_u64_device(need)
+            x, _, state, cnt = gauss_step(ZIG, need, r=r)
+            nw, nt = _read(cnt)
+            n_keep = need - nw - nt
+            src = None
+            if nw or nt:
+                order = _order(state)     # accepted, wedge, tail lanes
+            if nw:
+                widx = order[n_keep:n_keep + nw]
+                u = base.sample_u64_device(nw)
+                _, _, dec, cnt = gauss_step(WEDGE, nw, r=r, idx=widx, x=x, r2=u)
+                n_ok, n_flag = _read(cnt)
+                if n_flag:
+                    n_ok += int(_settle(dec, n_flag, _wedge_host,
+                                        u, r[widx], x[widx])[1].sum())
+                state[widx] = 1 - dec     # accepted -> 0, rejected -> 1
+                n_keep += n_ok
+            if nt:
+                tidx = order[need - nt:]
+                uu, tsrc = self._tail_device(nt)
+                tu = uu + RN
+                x[tidx] = torch.where(r[tidx] < 0, -tu, tu)
+                src = torch.full((need,), -1.0, dtype=torch.float64, device=dev)
+                src[tidx] = tsrc
+                state[tidx] = 0
+                n_keep += nt
+            if n_keep < need:
+                good = _order(state)[:n_keep]
+                x = x[good]
+                src = None if src is None else src[good]
+            xs.append(x)
+            srcs.append(src)
+            filled += n_keep
+        if all(sr is None for sr in srcs):
+            srcs = [None]
+        else:
+            srcs = [torch.full((len(x),), -1.0, dtype=torch.float64, device=dev)
+                    if sr is None else sr for x, sr in zip(xs, srcs)]
+        if len(xs) == 1:
+            return xs[0], srcs[0]
+        return torch.cat(xs), (None if srcs[0] is None else torch.cat(srcs))
+
+    def _tail_device(self, nt: int):
+        """The tail loop of ``norm_float`` for nt lanes: (uu, the uniform
+        draw it came from), float64 [nt]."""
+        base = self.base
+        dev = base.device
+        uu_all = torch.empty(nt, dtype=torch.float64, device=dev)
+        src = torch.empty(nt, dtype=torch.float64, device=dev)
+        pend = torch.arange(nt, device=dev)
+        while len(pend):
+            m = len(pend)
+            f = base.sample_u64_device(2 * m)      # uu's draws, then vv's
+            fa = f[:m]
+            uu, _, dec, cnt = gauss_step(TAIL, m, r=fa, r2=f[m:])
+            n_ok, n_flag = _read(cnt)
+            if n_flag:
+                n_ok += int(_settle(dec, n_flag, _tail_host, fa, f[m:])[1].sum())
+            order = _order(1 - dec)                # accepted lanes first
+            oi = order[:n_ok]
+            uu_all[pend[oi]] = uu[oi]
+            src[pend[oi]] = u64_to_unit_float(fa[oi])
+            pend = pend[order[n_ok:]]
+        return uu_all, src
+
+    def sample_device(self, center, std_dev, count: int = 1) -> torch.Tensor:
+        """``sample`` on the sampler's device: int64 [count]; ``center``
+        and ``std_dev`` are floats or float64 tensors [count] there."""
+        dev = self.base.device
+        s = _lanes(std_dev, count, dev)
+        if bool((s <= 0).any()):
+            raise ValueError("standard deviation not positive")
+        if count == 0:
+            return torch.empty(0, dtype=torch.int64, device=dev)
+        c = _lanes(center, count, dev)
+        x, src = self.norm_float_device(count)
+        _, out, dec, cnt = gauss_step(ROUND, count, x=x, src=src, center=c, s=s)
+        _, n_flag = _read(cnt)
+        if n_flag:
+            fi, _, val = _settle(dec, n_flag, _round_host, x, src, c, s)
+            out[fi] = torch.from_numpy(val).to(dev)
+        return out
 
 
 def compute_cdt(center: float, sigma: float) -> np.ndarray:
@@ -251,6 +357,303 @@ class COSACSampler:
             out[idx] = (y_round[ok] + c_int[idx]).astype(np.int64)
             pend = pend[~ok]
         return out
+
+    def sample_device(self, center, std_dev) -> torch.Tensor:
+        """``sample`` on the sampler's device: centers float64 [n] there,
+        ``std_dev`` a float or float64 [n]; int64 [n]."""
+        dev = self.base.device
+        c = center.to(torch.float64).reshape(-1)
+        n = c.shape[0]
+        if n == 0:
+            return torch.empty(0, dtype=torch.int64, device=dev)
+        s = _lanes(std_dev, n, dev)
+        c_int = torch.round(c)
+        c_frac = c_int - c
+        r = self.base.sample_u64_device(n)
+        _, out, dec, cnt = gauss_step(DIRECT, n, r=r, cf=c_frac, s=s,
+                                      center=c_int)
+        n_ok, n_flag = _read(cnt)
+        if n_flag:
+            fi, ok, _ = _settle(dec, n_flag, _direct_host, r, c_frac, s)
+            n_ok += int(ok.sum())
+            acc = fi[torch.from_numpy(ok).to(dev)]
+            out[acc] = c_int[acc].to(torch.int64)
+        pend = _order(dec)[:n - n_ok]              # the rejected lanes, in order
+        while len(pend):
+            m = len(pend)
+            x, src = self.rounded.norm_float_device(m)
+            d = self.base.sample_u64_device(2 * m)  # the bits, then rr
+            y_round, _, dec, cnt = gauss_step(
+                COSAC, m, idx=pend, x=x, src=src, r=d[:m], r2=d[m:], cf=c_frac,
+                s=s, center=c_int, out=out)
+            n_ok, n_flag = _read(cnt)
+            if n_flag:
+                fi, ok, val = _settle(dec, n_flag, _cosac_host, x, src, d[:m],
+                                      d[m:], s[pend], c_frac[pend])
+                n_ok += int(ok.sum())
+                acc = torch.from_numpy(ok).to(dev)
+                lanes = pend[fi[acc]]
+                out[lanes] = (torch.from_numpy(val).to(dev)[acc]
+                              + c_int[lanes]).to(torch.int64)
+            pend = pend[_order(dec)[:m - n_ok]]
+        return out
+
+
+# ------------------------------------------------- device wavefront steps
+
+ZIG, WEDGE, TAIL, DIRECT, COSAC, ROUND = range(6)
+OPS = ("zig", "wedge", "tail", "direct", "cosac", "round")
+# relative margin around a decision or rounding that went through exp or
+# log: lanes within it are decided on the host with the numpy rule.  The
+# card's and numpy's exp and log differ by 1-2 ulp (2^-52 relative); 2^-40
+# leaves room for the few ulp they pick up on the way to the comparison.
+MARGIN = 2.0 ** -40
+_TINY = 2.0 ** -1000
+SQRT_2PI = float(np.sqrt(2 * math.pi))   # numpy's, as the COSAC rule has it
+SYNCS = 0   # host reads of the wavefront (counts and flagged lanes)
+
+# slots of the kernel's int64 header (csrc/gaussian.cu H_*)
+(H_N, H_R, H_R2, H_IDX, H_X, H_SRC, H_CF, H_S, H_CENTER, H_TAB, H_OUTF,
+ H_OUTI, H_DEC, H_CNT, H_MARGIN, H_INV_RN, H_SQ2PI, H_LEN) = range(18)
+
+_TABLES = {}   # device -> int64 [384]: kn, then wn and fn as float64 bits
+
+
+def _lanes(v, n: int, dev) -> torch.Tensor:
+    """A float or a float64 tensor -> contiguous float64 [n] on ``dev``."""
+    t = torch.as_tensor(v, dtype=torch.float64, device=dev).reshape(-1)
+    return t.expand(n).contiguous() if t.numel() == 1 else t.contiguous()
+
+
+def _read(cnt: torch.Tensor) -> list[int]:
+    """A step's two counts on the host (a sync on the card)."""
+    global SYNCS
+    SYNCS += 1
+    return cnt.tolist()
+
+
+def _settle(dec: torch.Tensor, n_flag: int, rule, *ins):
+    """Decide the ``n_flag`` flagged lanes of ``dec`` (2) on the host:
+    ``rule`` gets each input's flagged entries as numpy arrays and returns
+    (accept bool [k], value [k] or None); ``dec`` takes the decisions.
+    Returns (the flagged lanes' indices, accept, value)."""
+    global SYNCS
+    SYNCS += 1
+    fi = torch.nonzero(dec == 2).reshape(-1)
+    ok, val = rule(*[None if t is None else t[fi].cpu().numpy() for t in ins])
+    dec[fi] = torch.from_numpy(ok.astype(np.int8)).to(dec.device)
+    return fi, ok, val
+
+
+def _order(dec: torch.Tensor) -> torch.Tensor:
+    """The lanes sorted by class, stable: lane order within each class."""
+    return torch.sort(dec, stable=True).indices
+
+
+def _unit_np(raw: np.ndarray) -> np.ndarray:
+    """``sample_float``'s map of raw uint64 bits (int64) to [0, 1)."""
+    r = raw.view(np.uint64) % np.uint64(1 << FLOAT_PREC)
+    bits = r | np.uint64((1023 + FLOAT_PREC) << FLOAT_PREC)
+    return bits.view(np.float64) / float(1 << FLOAT_PREC) - 1.0
+
+
+def _x_np(x: np.ndarray, src: np.ndarray) -> np.ndarray:
+    """numpy's norm_float value: x itself, or for a tail lane the tail's
+    ``tu`` recomputed from its draw with the sign x carries."""
+    if src is None:
+        return x
+    tail = src >= 0
+    if not tail.any():
+        return x
+    tu = -np.log(np.where(tail, src, 0.5)) * (1.0 / RN) + RN
+    return np.where(tail, np.where(x < 0, -tu, tu), x)
+
+
+def _wedge_host(u, r, x):
+    i = (r.view(np.uint64) % np.uint64(BLOCK_SIZE)).astype(np.int64)
+    f0, f1 = _FN[i - 1], _FN[i]
+    return _unit_np(u) * (f0 - f1) < _normal(x) - f1, None
+
+
+def _tail_host(fa, fb):
+    uu = -np.log(_unit_np(fa)) * (1.0 / RN)
+    vv = -np.log(_unit_np(fb))
+    return vv + vv >= uu * uu, None
+
+
+def _direct_host(r, c_frac, s):
+    return _unit_np(r) < np.exp(-(c_frac ** 2) / (2 * s ** 2)) / (
+        np.sqrt(2 * math.pi) * s), None
+
+
+def _cosac_host(x, src, bits, rr, sf, cf):
+    y = sf * _x_np(x, src)
+    b = bits.view(np.uint64) & np.uint64(1)
+    y_round = np.where(b == 0, np.round(y) - 1, np.round(y) + 1)
+    cmp = np.where(b == 0, y_round <= 0.5, y_round >= -0.5)
+    acc_p = np.exp(-((y_round + cf) ** 2 - y * y) / (2 * sf * sf))
+    return cmp & (_unit_np(rr) < acc_p), y_round
+
+
+def _round_host(x, src, c, s):
+    return np.zeros(len(x), dtype=bool), np.round(
+        c + _x_np(x, src) * s).astype(np.int64)
+
+
+def _tables(dev) -> torch.Tensor:
+    t = _TABLES.get(dev)
+    if t is None:
+        t = torch.from_numpy(np.concatenate([
+            _KN.view(np.int64), _WN.view(np.int64),
+            _FN.view(np.int64)])).to(dev)
+        _TABLES[dev] = t
+    return t
+
+
+def _near(p, q, scale):
+    return (p - q).abs() <= MARGIN * scale + _TINY
+
+
+def _near_half(y):
+    return ((y - torch.floor(y)) - 0.5).abs() <= MARGIN * y.abs() + _TINY
+
+
+def _dec(flag, ok):
+    return torch.where(flag, 2, ok.to(torch.int64)).to(torch.int8)
+
+
+def gauss_plain(op: int, n: int, r=None, r2=None, idx=None, x=None,
+                src=None, cf=None, s=None, center=None, out=None):
+    """Plain version of one wavefront step (csrc/gaussian.cu states each
+    op): the kernel's arithmetic in torch ops, one IEEE rounding per numpy
+    operation in numpy's order, the same margin rule, on the inputs'
+    device.  Returns (out_f, out_i, dec int8 [n], counts int32 [2]);
+    COSAC's out_i is ``out``, written in place at its accepted lanes."""
+    out_f = out_i = None
+    tab = _tables(next(v for v in (r, x, cf) if v is not None).device)
+    kn, wn, fn = tab[:128], tab[128:256].view(torch.float64), \
+        tab[256:].view(torch.float64)
+    if op == ZIG:
+        i = r & (BLOCK_SIZE - 1)
+        j = (r >> 7) & ((1 << FLOAT_PREC) - 1)
+        mag = j.to(torch.float64)
+        out_f = torch.where(r < 0, -mag, mag) * wn[i]
+        acc = j < kn[i]
+        p, q = ~acc & (i > 0), ~acc & (i == 0)
+        dec = torch.where(acc, 0, torch.where(p, 1, 2)).to(torch.int8)
+    elif op == WEDGE:
+        i = r[idx] & (BLOCK_SIZE - 1)
+        xx = x[idx]
+        f1 = fn[i]
+        lhs = u64_to_unit_float(r2) * (fn[i - 1] - f1)
+        e = torch.exp(-0.5 * xx * xx)
+        rhs = e - f1
+        q = _near(lhs, rhs, e)
+        p = ~q & (lhs < rhs)
+    elif op == TAIL:
+        uu = -torch.log(u64_to_unit_float(r)) * (1.0 / RN)
+        vv = -torch.log(u64_to_unit_float(r2))
+        lhs, rhs = vv + vv, uu * uu
+        q = _near(lhs, rhs, rhs)
+        p = ~q & (lhs >= rhs)
+        out_f = uu
+    elif op == DIRECT:
+        e = torch.exp(-(cf * cf) / (2.0 * (s * s)))
+        t = e / (SQRT_2PI * s)
+        rr = u64_to_unit_float(r)
+        q = _near(rr, t, t)
+        p = ~q & (rr < t)
+        out_i = torch.where(p, center.to(torch.int64), 0)
+    elif op == COSAC:
+        sf, c = s[idx], cf[idx]
+        y = sf * x
+        ry = torch.round(y)
+        b0 = (r & 1) == 0
+        yr = torch.where(b0, ry - 1.0, ry + 1.0)
+        cmp = torch.where(b0, yr <= 0.5, yr >= -0.5)
+        a1 = yr + c
+        acc = torch.exp(-(a1 * a1 - y * y) / ((2.0 * sf) * sf))
+        rr = u64_to_unit_float(r2)
+        q = cmp & _near(rr, acc, acc)
+        if src is not None:
+            q = q | ((src >= 0) & _near_half(y))
+        p = ~q & cmp & (rr < acc)
+        out_f = yr
+        lanes = idx[p]
+        out[lanes] = (yr[p] + center[lanes]).to(torch.int64)
+        out_i = out
+    elif op == ROUND:
+        v = center + x * s
+        q = torch.zeros(v.shape, dtype=torch.bool, device=v.device)
+        if src is not None:
+            q = (src >= 0) & _near_half(v)
+        p = torch.zeros_like(q)
+        out_i = torch.round(v).to(torch.int64)
+    else:
+        raise ValueError(f"gauss: no op {op}")
+    if op != ZIG:
+        dec = _dec(q, p)
+    cnt = torch.stack([p.sum(), q.sum()]).to(torch.int32)
+    return out_f, out_i, dec, cnt
+
+
+def gauss_cuda(op: int, n: int, r=None, r2=None, idx=None, x=None,
+               src=None, cf=None, s=None, center=None, out=None):
+    """One launch of csrc/gaussian.cu for ``op`` over n lanes, all tensors
+    on one card (raw u64 draws as int64, lane indices and ``out`` int64,
+    the rest float64).  Returns (out_f, out_i, dec, counts) as
+    ``gauss_plain``."""
+    ins = dict(r=(r, torch.int64), r2=(r2, torch.int64),
+               idx=(idx, torch.int64), x=(x, torch.float64),
+               src=(src, torch.float64), cf=(cf, torch.float64),
+               s=(s, torch.float64), center=(center, torch.float64),
+               out=(out, torch.int64))
+    dev = None
+    for name, (t, dt) in ins.items():
+        if t is not None:
+            backend.require(t, dt, name=name)
+            if not t.is_cuda:
+                raise ValueError(f"gauss: {name} is not on the card")
+            dev = t.device if dev is None else dev
+    if dev is None or not 0 < n < 1 << 31:
+        raise ValueError("gauss: expected lanes on the card")
+    hdr = np.zeros(H_LEN, dtype=np.int64)
+    hdr[H_N] = n
+    for slot, name in ((H_R, "r"), (H_R2, "r2"), (H_IDX, "idx"), (H_X, "x"),
+                       (H_SRC, "src"), (H_CF, "cf"), (H_S, "s"),
+                       (H_CENTER, "center")):
+        if ins[name][0] is not None:
+            hdr[slot] = ins[name][0].data_ptr()
+    hdr[H_TAB] = _tables(dev).data_ptr()
+    out_f = out_i = None
+    if op in (ZIG, TAIL, COSAC):
+        out_f = torch.empty(n, dtype=torch.float64, device=dev)
+        hdr[H_OUTF] = out_f.data_ptr()
+    if op in (DIRECT, ROUND):
+        out_i = torch.empty(n, dtype=torch.int64, device=dev)
+    elif op == COSAC:
+        out_i = out
+    if out_i is not None:
+        hdr[H_OUTI] = out_i.data_ptr()
+    dec = torch.empty(n, dtype=torch.int8, device=dev)
+    cnt = torch.empty(2, dtype=torch.int32, device=dev)   # zeroed by the launch
+    hdr[H_DEC] = dec.data_ptr()
+    hdr[H_CNT] = cnt.data_ptr()
+    hdr[H_MARGIN:H_SQ2PI + 1] = np.array(
+        [MARGIN, 1.0 / RN, SQRT_2PI], dtype=np.float64).view(np.int64)
+    err = backend.lib().ringo_gauss(op, hdr.ctypes.data, backend.stream_ptr(dec))
+    backend.check(err, f"gauss {OPS[op]}")
+    backend.LAUNCHES["gauss"] += 1
+    return out_f, out_i, dec, cnt
+
+
+def gauss_step(op: int, n: int, **ins):
+    """One wavefront step: the kernel when the inputs lie on the card, the
+    plain version on the CPU."""
+    t = next(v for v in ins.values() if v is not None)
+    if t.is_cuda:
+        return gauss_cuda(op, n, **ins)
+    return gauss_plain(op, n, **ins)
 
 
 # ------------------------------------------------------- device search

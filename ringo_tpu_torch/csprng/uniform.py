@@ -13,8 +13,17 @@ refills of a CUDA sampler do not each pay a launch and a synchronising
 copy.  CTR is seekable, so the window changes no byte, and a snapshot is a
 byte offset: ``sample_n``'s rare rejection path rewinds to it and replays
 in exact scalar order.  A large draw XORs its 8 KiB chunks with one
-cumulative XOR, which is what the refill loop computes one chunk at a
-time.
+cumulative XOR over uint64 words, which is what the refill loop computes
+one chunk at a time.
+
+``sample_u64_device`` / ``sample_float_device`` draw the same values as
+``sample_u64`` / ``sample_float`` and advance the sampler alike, but
+return tensors on the sampler's device.  On a CUDA device the refills are
+folded on the card by the kernel's fold entry (``fold_cuda``: keystream
+and cumulative XOR in one launch, nothing copied to the host); on the CPU
+by the plain version ``fold_plain``.  The 8 KiB buffer then stays where
+the last draw left it and is copied across only when a draw of the other
+kind follows.
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ FLOAT_PREC = 52
 _U64_MAX = (1 << 64) - 1
 _CHUNK_BLOCKS = 1 << 16   # counter blocks per vectorised AES pass
 _LAUNCH_BLOCKS = 1 << 22  # counter blocks per kernel launch (64 MiB)
+_FOLD_CHUNKS = 1024       # 8 KiB chunks per fold launch (8 MiB)
 # read-ahead window of a sampler, in counter blocks: 1 MiB on the card; on
 # the CPU, where reading ahead saves nothing, one 8 KiB refill
 WINDOW_BLOCKS = 1 << 16
@@ -169,15 +179,64 @@ def ctr_blocks_cuda(rk: np.ndarray, iv: int, block0: int,
     n_blocks = out.numel() // 16
     if not 0 < n_blocks <= _LAUNCH_BLOCKS:
         raise ValueError(f"n_blocks out of range: {n_blocks}")
-    if rk.dtype != np.uint32 or rk.shape != (60,):
-        raise ValueError("rk: expected the 60 uint32 words of expand_key_256")
-    start = (iv + block0) % (1 << 128)
-    args = np.concatenate([rk, np.array(
-        [(start >> s) & 0xFFFFFFFF for s in (96, 64, 32, 0)], dtype=np.uint32)])
+    args = _ctr_args(rk, iv + block0)
     err = backend.lib().ringo_aes256_ctr(
         args.ctypes.data, out.data_ptr(), n_blocks, backend.stream_ptr(out))
     backend.check(err, "aes256_ctr")
     backend.LAUNCHES["aes"] += 1
+    return out
+
+
+def _ctr_args(rk: np.ndarray, start: int) -> np.ndarray:
+    """The kernel's uint32[64] arguments: round keys, then the counter
+    ``start`` mod 2^128 as four big-endian words."""
+    if rk.dtype != np.uint32 or rk.shape != (60,):
+        raise ValueError("rk: expected the 60 uint32 words of expand_key_256")
+    start %= 1 << 128
+    return np.concatenate([rk, np.array(
+        [(start >> s) & 0xFFFFFFFF for s in (96, 64, 32, 0)], dtype=np.uint32)])
+
+
+def fold_plain(carry: torch.Tensor, ks: torch.Tensor) -> torch.Tensor:
+    """Plain version of the fold: carry uint8 [8192], ks uint8 [m * 8192]
+    -> uint8 [m * 8192] whose chunk j is carry ^ ks_0 ^ ... ^ ks_j (m
+    refills of ``_take_bytes``), as a doubling XOR-scan over uint64 words."""
+    if ks.numel() % BUF_SIZE or carry.numel() != BUF_SIZE:
+        raise ValueError("fold_plain: expected an 8 KiB carry and whole chunks")
+    m = ks.numel() // BUF_SIZE
+    w = ks.reshape(m, BUF_SIZE).clone().view(torch.int64)
+    w[0] ^= carry.reshape(BUF_SIZE).clone().view(torch.int64)
+    d = 1
+    while d < m:
+        w[d:] ^= w[:-d].clone()
+        d *= 2
+    return w.view(torch.uint8).reshape(-1)
+
+
+def fold_cuda(rk: np.ndarray, iv: int, pos: int, carry: torch.Tensor,
+              out: torch.Tensor) -> torch.Tensor:
+    """The kernel's fold (csrc/aes256_ctr.cu, ``ringo_aes256_ctr_fold``):
+    fills ``out``, uint8 [m * 8192] on the card, with ``fold_plain(carry,
+    ks)`` for ks the keystream from byte ``pos`` of the stream of counter
+    ``iv`` on.  One launch per 8 MiB; a launch after the first takes the
+    last chunk of the one before as its carry."""
+    backend.require(carry, torch.uint8, (BUF_SIZE,), name="carry")
+    backend.require(out, torch.uint8, name="out")
+    if not (carry.is_cuda and out.is_cuda) or out.dim() != 1 \
+            or out.numel() % BUF_SIZE or not out.numel():
+        raise ValueError("fold_cuda: expected a carry and whole 8 KiB chunks "
+                         "on the card")
+    m = out.numel() // BUF_SIZE
+    for c0 in range(0, m, _FOLD_CHUNKS):
+        mm = min(_FOLD_CHUNKS, m - c0)
+        at = pos + c0 * BUF_SIZE
+        src = carry if c0 == 0 else out[(c0 - 1) * BUF_SIZE:c0 * BUF_SIZE]
+        args = _ctr_args(rk, iv + at // 16)
+        err = backend.lib().ringo_aes256_ctr_fold(
+            args.ctypes.data, at % 16, src.data_ptr(),
+            out[c0 * BUF_SIZE:].data_ptr(), mm, backend.stream_ptr(out))
+        backend.check(err, "aes256_ctr_fold")
+        backend.LAUNCHES["aes"] += 1
     return out
 
 
@@ -265,13 +324,27 @@ class UniformSampler:
         off = pos - 16 * self._w0
         return self._win[off:off + n]
 
+    def _host_buf(self) -> np.ndarray:
+        """The 8 KiB buffer on the host (copied back after a device draw)."""
+        if isinstance(self._buf, torch.Tensor):
+            self._buf = self._buf.cpu().numpy()
+        return self._buf
+
+    def _device_buf(self) -> torch.Tensor:
+        """The 8 KiB buffer on the sampler's device (copied over after a
+        host draw)."""
+        if not isinstance(self._buf, torch.Tensor):
+            self._buf = torch.from_numpy(self._buf.copy()).to(self.device)
+        return self._buf
+
     def _snapshot(self):
-        return (self._consumed, self._buf.copy(), self._ptr)
+        return (self._consumed, self._buf.copy() if isinstance(
+            self._buf, np.ndarray) else self._buf.clone(), self._ptr)
 
     def _restore(self, snap):
         consumed, buf, ptr = snap
         self._consumed = consumed
-        self._buf = buf.copy()
+        self._buf = buf.copy() if isinstance(buf, np.ndarray) else buf.clone()
         self._ptr = ptr
 
     def read(self, data: bytes) -> bytes:
@@ -281,21 +354,50 @@ class UniformSampler:
         return (np.frombuffer(data, dtype=np.uint8) ^ ks).tobytes()
 
     def _take_bytes(self, n: int) -> np.ndarray:
+        buf = self._host_buf()
         out = np.empty(n, dtype=np.uint8)
         take = min(n, BUF_SIZE - self._ptr)
-        out[:take] = self._buf[self._ptr:self._ptr + take]
+        out[:take] = buf[self._ptr:self._ptr + take]
         self._ptr += take
         rem = n - take
         if rem:
-            # m refills at once: refill i leaves buf ^ ks_1 ^ ... ^ ks_i
+            # m refills at once: refill i leaves buf ^ ks_1 ^ ... ^ ks_i,
+            # a cumulative XOR over uint64 words
             m = -(-rem // BUF_SIZE)
             ks = self._keystream(m * BUF_SIZE).reshape(m, BUF_SIZE).copy()
-            ks[0] ^= self._buf
-            np.bitwise_xor.accumulate(ks, axis=0, out=ks)
+            ks[0] ^= buf
+            words = ks.view("<u8")
+            np.bitwise_xor.accumulate(words, axis=0, out=words)
             out[take:] = ks.reshape(-1)[:rem]
             self._buf = ks[-1].copy()
             self._ptr = rem - (m - 1) * BUF_SIZE
         return out
+
+    def _take_bytes_device(self, n: int) -> torch.Tensor:
+        """``_take_bytes`` as a uint8 [n] tensor on the sampler's device,
+        to be read only (it may share memory with the buffer).  The m
+        refills are folded behind a copy of the buffer in one tensor
+        (``fold_cuda`` on the card, ``fold_plain`` over the host keystream
+        on the CPU), so the draw is a slice of it."""
+        buf = self._device_buf()
+        ptr = self._ptr
+        if ptr + n <= BUF_SIZE:
+            self._ptr += n
+            return buf[ptr:ptr + n]
+        rem = n - (BUF_SIZE - ptr)
+        m = -(-rem // BUF_SIZE)
+        ext = torch.empty((m + 1) * BUF_SIZE, dtype=torch.uint8,
+                          device=self.device)
+        ext[:BUF_SIZE].copy_(buf)
+        if self.device.type == "cuda":
+            fold_cuda(self._rk, self._iv, self._consumed, buf, ext[BUF_SIZE:])
+            self._consumed += m * BUF_SIZE
+        else:
+            ks = torch.from_numpy(self._keystream(m * BUF_SIZE).copy())
+            ext[BUF_SIZE:] = fold_plain(buf, ks)
+        self._buf = ext[m * BUF_SIZE:]
+        self._ptr = rem - (m - 1) * BUF_SIZE
+        return ext[ptr:ptr + n]
 
     # -- sampling ------------------------------------------------------------
 
@@ -304,6 +406,14 @@ class UniformSampler:
 
     def sample_u64(self, count: int) -> np.ndarray:
         return self._take_bytes(8 * count).view("<u8")
+
+    def sample_u64_device(self, count: int) -> torch.Tensor:
+        """``sample_u64`` on the sampler's device: the raw uint64 bits as
+        int64 [count]."""
+        b = self._take_bytes_device(8 * count)
+        if b.storage_offset() % 8:     # an int64 view needs 8-byte alignment
+            b = b.clone()
+        return b.view(torch.int64)
 
     def sample_n(self, n: int, count: int = 1) -> np.ndarray:
         """count uniform draws in [0, n), exact reference SampleN order."""
@@ -329,3 +439,15 @@ class UniformSampler:
         r = self.sample_u64(count) % np.uint64(1 << FLOAT_PREC)
         bits = r | np.uint64((1023 + FLOAT_PREC) << FLOAT_PREC)
         return bits.view(np.float64) / float(1 << FLOAT_PREC) - 1.0
+
+    def sample_float_device(self, count: int = 1) -> torch.Tensor:
+        """``sample_float`` on the sampler's device: float64 [count], the
+        same bits mapped the same way (exact)."""
+        return u64_to_unit_float(self.sample_u64_device(count))
+
+
+def u64_to_unit_float(u: torch.Tensor) -> torch.Tensor:
+    """Raw uint64 draws (int64) -> floats in [0, 1) as ``sample_float``
+    maps them: the low 52 bits OR the exponent 1075, over 2^52, minus 1."""
+    bits = (u & ((1 << FLOAT_PREC) - 1)) | ((1023 + FLOAT_PREC) << FLOAT_PREC)
+    return bits.view(torch.float64) / float(1 << FLOAT_PREC) - 1.0

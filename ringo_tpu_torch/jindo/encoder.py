@@ -12,7 +12,6 @@ from __future__ import annotations
 
 import math
 
-import numpy as np
 import torch
 
 from ..csprng import COSACSampler
@@ -116,11 +115,6 @@ class Encoder:
         d, slots = p.degree, p.slots
         shifted = torch.cat([-c[..., d - slots:], c[..., :d - slots]], dim=-1)
         return coeffs + shifted - int(p.base) * c
-
-    def host_centers(self, values: torch.Tensor) -> np.ndarray:
-        """Drift centres of CPU digit planes, as a flat numpy array for
-        the host samplers."""
-        return self.drift_centers(self.base_digits(values)).reshape(-1).numpy()
 
     # -- plain encode and decode ----------------------------------------------
 

@@ -3,8 +3,9 @@
 Every (column, row) cell of the commitment matrix is encoded, sampled,
 NTT'd and MAC'd in whole-tensor operations (reference jindo/prover.go
 45-202, which commits one column at a time).  The host draws the small
-masking rows, the COSAC corrections of the non-default cells, two ChaCha20
-keys and the mask-column noise, in exactly the JAX package's sampler order;
+masking rows and two ChaCha20 keys, and the device (the Gaussian and AES
+kernels on the card) the COSAC corrections of the non-default cells and the
+mask-column noise, in exactly the JAX package's sampler order;
 ``_commit_batch`` then runs the whole batch on the device:
 
 1. ChaCha20 entropy (CUDA kernel, csprng/chacha.py);
@@ -234,19 +235,23 @@ class Prover:
                         sigma, populated):
         """Sigma-class lanes, the COSAC corrections of the non-default
         cells (all of them host-known masking rows), the two ChaCha20
-        keys and the mask-column noise, in the reference's stream order."""
+        keys and the mask-column noise, in the reference's stream order.
+        The corrections and the noise are drawn on the prover's device
+        (``sample_device``: the Gaussian kernel and the folded AES
+        keystream on the card) and stay there."""
         p, spec = self.params, self.spec
         w = spec.w
         B, R, S = p.cols + 1, p.rows, p.slots
         BR = B * R
         d = p.degree
+        dev = self.device
         default = populated & np.isclose(sigma, p.ecd_std_dev, rtol=0, atol=0)
         other = populated & ~default
         OMAX = (B - 1) + R
         oidx = np.nonzero(other.reshape(-1))[0]
         oidx_pad = np.full(OMAX, BR, dtype=np.int64)
         oidx_pad[:len(oidx)] = oidx
-        c_sub = np.zeros((OMAX, d), dtype=np.int64)
+        c_sub = torch.zeros((OMAX, d), dtype=torch.int64, device=dev)
         if len(oidx):
             mask_pos = {int(r): k for k, r in enumerate(mask_rows)}
             e_sub = torch.zeros((w, len(oidx), S), dtype=torch.int64)
@@ -259,18 +264,20 @@ class Prover:
                     e_sub[:, k] = src[:, b * S:(b + 1) * S]
                 else:
                     e_sub[:, k] = mask_vals[:, mask_pos[r]]
-            centers = self.ecd.host_centers(e_sub)
-            sd_sub = np.repeat(sigma.reshape(-1)[oidx], d)
-            c_sub[:len(oidx)] = self.ecd.cosac.sample(
-                centers, sd_sub).reshape(len(oidx), d)
+            ecd = self.ecd
+            centers = ecd.drift_centers(ecd.base_digits(e_sub.to(dev)))
+            sd_sub = torch.from_numpy(
+                np.repeat(sigma.reshape(-1)[oidx], d)).to(dev)
+            c_sub[:len(oidx)] = ecd.cosac.sample_device(
+                centers.reshape(-1), sd_sub).reshape(len(oidx), d)
         K = p.mlwe_rank + p.in_msis_rank
         key_enc = chacha.key_from_bytes(bytes(self.uniform._take_bytes(32)))
         key_ml = chacha.key_from_bytes(bytes(self.uniform._take_bytes(32)))
-        noise_mask = self.rounded.sample(
+        noise_mask = self.rounded.sample_device(
             0.0, p.mask_mlwe_std_dev, K * d).reshape(K, d)
         return (torch.from_numpy(default.reshape(-1)),
-                torch.from_numpy(oidx_pad), torch.from_numpy(c_sub),
-                key_enc, key_ml, torch.from_numpy(noise_mask))
+                torch.from_numpy(oidx_pad), c_sub, key_enc, key_ml,
+                noise_mask)
 
     # ----------------------------------------------------------- device side
 
