@@ -30,15 +30,22 @@
    keystream and against a sampler's numpy ``_take_bytes``, exact, at one
    refill, a commit's 8.36 MB, two launches, an unaligned start, the
    counter's low-64 carry and the 2^128 wrap; timed beside its bound;
-2a''. Gaussian phase: COSAC draws on the card (csrc/gaussian.cu fed by the
-   fold) equal to the numpy sampler at the N = 2^19 commit's 147,712 lanes,
-   the PublicKey commit's 35,328, bfv's sigmas and once with a margin wide
-   enough that the host rule settles thousands of lanes; the noise mask's
-   10,752 lanes; every kernel step replayed through the plain version on
-   the card, exact; the draw, the numpy sampler and each op timed, host
-   syncs counted.  The commits, evaluates and Buckler proves below fail
-   unless they launched it, and the commit fails if a COSAC or noise-mask
-   sampler copied keystream to the host;
+2a''. Gaussian phase: the loop kernel (csrc/gaussian.cu, one cooperative
+   launch a ``sample_device`` call, fed by the fold) at the N = 2^19
+   commit's 147,712 COSAC lanes, its 10,752 mask-noise lanes, the PublicKey
+   commit's 35,328 and bfv's sigmas, each at the default margin, at 2^-3
+   (flagged lanes settled by the host rule) and with 64 KiB read-aheads
+   ("window exhausted" resumes): output and both streams' states equal to
+   ``gauss_loop_plain`` on the card and to the numpy sampler, the same
+   launches, exits, phases and bytes as the plain version; every step
+   of the plain runs held against the step kernel, exact; the loop kernel
+   timed per call at 147,712 and 35,328 lanes beside its plain version and
+   its bound (the call's centres, sigmas, output and committed stream
+   bytes, each moved once, or its phases' float64 operations), each op's
+   step kernel at its largest step.  The commits, evaluates and Buckler proves below fail unless they
+   launched it, the commit also unless it launched it once per
+   ``sample_device`` call and exit with at most 3 host syncs, or if a COSAC
+   or noise-mask sampler copied keystream to the host;
 2b. big-field phase: the big-field kernel (csrc/bigfield.cu: mul_mod,
    reduce_cols, tree_sum, limb add/sub/neg/geq) against the plain versions
    on the card, exactly, at all seven field widths with the corner values
@@ -660,7 +667,7 @@ def fold_phase(row: dict, errs: dict) -> None:
         del out, ks
 
 
-# Gaussian wavefront: bytes of each step's lane (inputs read once, outputs
+# Gaussian loop: bytes of each step's lane (inputs read once, outputs
 # written once) and its float64 operations, an exp or a log counted as
 # EXP_LOG_OPS (a range reduction and a polynomial); the operations over the
 # H100's float64 rate outside the tensor cores (NVIDIA's data sheet, SXM)
@@ -669,12 +676,24 @@ FP64_OPS_PER_S = 33.5e12
 GAUSS_WORK = {"zig": (17, 4), "wedge": (33, 6 + EXP_LOG_OPS),
               "tail": (25, 6 + 2 * EXP_LOG_OPS), "direct": (25, 8 + EXP_LOG_OPS),
               "cosac": (65, 14 + EXP_LOG_OPS), "round": (41, 4)}
+GAUSS_OPS = ("zig", "wedge", "tail", "direct", "cosac", "round")
 
 
 def gauss_bound(op: str, n: int):
     per_byte, per_op = GAUSS_WORK[op]
     return bench.bound_ms(per_byte * n + 3 * 1024, per_op * n,
                           ops_rate=FP64_OPS_PER_S)
+
+
+def loop_bound(lanes: int, used: int, steps):
+    """Least time of one COSAC loop call: the bytes the call must move
+    (centre and sigma read once, 8 bytes each a lane, the int64 output
+    written once, the ``used`` stream bytes it commits read once) over
+    the memory rate, or the float64 operations its phases did on this
+    call's data (each step's GAUSS_WORK operations a lane) over the
+    float64 rate, whichever is larger."""
+    ops = sum(GAUSS_WORK[GAUSS_OPS[op]][1] * n for op, n in steps)
+    return bench.bound_ms(24 * lanes + used, ops, ops_rate=FP64_OPS_PER_S)
 
 
 def cosac_lanes(params, label: str):
@@ -689,106 +708,171 @@ def cosac_lanes(params, label: str):
     return rng.uniform(-2.5, 2.5, len(sig)), sig
 
 
+# the loop kernel's modes: (margin, read-ahead bytes of a stream); the wide
+# margin sends thousands of lanes to the host rule, the small read-ahead
+# ends launches with "window exhausted"
+GAUSS_MODES = {"default": (None, None), "margin 2^-3": (2.0 ** -3, None),
+               "read-ahead 64 KiB": (None, 1 << 16)}
+LAST_KEYS = ("launches", "exits", "phases", "rounds", "used", "read_ahead")
+
+
+def gauss_call(gaussian, kind: str, seed: bytes, c, s, n: int, device: str):
+    """One ``sample_device`` call of a new sampler on ``device``: (int64
+    [n], the samplers whose streams it drew)."""
+    import torch
+
+    if kind == "cosac":
+        smp = gaussian.COSACSampler(seed, device=device)
+        out = smp.sample_device(torch.from_numpy(c).to(device),
+                                torch.from_numpy(s).to(device))
+        return out, (smp.base, smp.rounded.base)
+    smp = gaussian.RoundedGaussianSampler(seed, device=device)
+    return smp.sample_device(c, s, n), (smp.base,)
+
+
+def numpy_call(gaussian, kind: str, seed: bytes, c, s, n: int):
+    """The numpy sampler's draw of the same seed on the host."""
+    if kind == "cosac":
+        smp = gaussian.COSACSampler(seed, device="cpu")
+        return smp.sample(c, s), (smp.base, smp.rounded.base)
+    smp = gaussian.RoundedGaussianSampler(seed, device="cpu")
+    return smp.sample(c, s, n), (smp.base,)
+
+
+def same_streams(a, b, what: str) -> None:
+    for x, y in zip(a, b):
+        if (x._consumed, x._ptr) != (y._consumed, y._ptr) or not np.array_equal(
+                x._host_buf(), y._host_buf()):
+            raise AssertionError(f"{what}: the samplers' states differ")
+
+
 def gauss_phase(params, params_pk, errs: dict):
-    """The Gaussian kernel (csrc/gaussian.cu) at the commit's shapes.  A
-    COSAC draw on the card (``sample_device``: the kernel fed by the fold)
-    equals the numpy sampler of the same seed at the N = 2^19 commit's
-    147,712 lanes, the PublicKey commit's 35,328, bfv's sigmas 4.79 and
-    6.77 and, with a margin of 2^-3, the commit's lanes again (thousands
-    settled by the host rule); the noise mask's 10,752 lanes of
-    ``RoundedGaussianSampler.sample_device`` likewise.  Every kernel step
-    of those draws is replayed through ``gauss_plain`` on the card, exact.
-    Times the draw (host clock, syncs counted), the numpy sampler, and
-    each op's kernel and plain version at its largest step."""
+    """The Gaussian kernel (csrc/gaussian.cu).  The loop entry: each
+    ``sample_device`` call of the main path's shapes (the N = 2^19 commit's
+    147,712 COSAC lanes in its three sigma classes, its mask-noise draw of
+    10,752 rounded lanes, a PublicKey commitment's 35,328 COSAC lanes, bfv's
+    sigmas 4.79 and 6.77), in each of GAUSS_MODES, gives on the card the
+    same integers and leaves both streams' samplers (``_consumed``,
+    ``_ptr``, ``_buf``) as ``gauss_loop_plain`` on the card and as the
+    numpy sampler of the same seed, with the same launches, exits, phases
+    and bytes as the plain version; at least one flagged and
+    one "window exhausted" resume are driven.  The step entry: every step
+    of those plain runs (``gauss_step`` routed to ``gauss_plain``) is held
+    against ``gauss_cuda`` on the same tensors, exact.  Times the loop
+    kernel per call (CUDA events, relaunched from the call's first state)
+    at 147,712 and 35,328 lanes beside its plain version and its bound
+    (``loop_bound`` of the timed call),
+    and each op's step kernel at its largest step."""
     import torch
 
     from ringo_tpu_torch.csprng import gaussian
 
     errs["gauss"] = 0
-    steps = []
-    cuda_step = gaussian.gauss_cuda
-
-    def record(op, n, **ins):
-        before = {k: v.clone() for k, v in ins.items() if v is not None}
-        out = cuda_step(op, n, **ins)      # COSAC writes into ins["out"]
-        steps.append((op, n, before, [None if o is None else o.clone()
-                                      for o in out], gaussian.MARGIN))
-        return out
-
-    gaussian.gauss_cuda = record
     pk_c, pk_s = cosac_lanes(params_pk, "publickey")
     cm_c, cm_s = cosac_lanes(params, "commit")
-    cases = [("commit", cm_c, cm_s, None),
-             ("PublicKey commit", pk_c, pk_s, None),
-             ("bfv sigmas", pk_c, np.repeat([4.79, 6.77], len(pk_c) // 2), None),
-             ("commit, margin 2^-3", cm_c, cm_s, 2.0 ** -3)]
-    draws = []
-    try:
-        for label, c, sg, margin in cases:
-            saved = gaussian.MARGIN
-            if margin is not None:
-                gaussian.MARGIN = margin
-            settle, settled = gaussian._settle, []
-            gaussian._settle = lambda dec, k, rule, *a, **kw: (
-                settled.append(k), settle(dec, k, rule, *a, **kw))[1]
-            try:
-                seed = b"gauss " + label.encode()
-                dev = gaussian.COSACSampler(seed, device="cuda")
-                sy0, la0, st0 = gaussian.SYNCS, gauss_launches(), len(steps)
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                got = dev.sample_device(torch.from_numpy(c).to("cuda"),
-                                        torch.from_numpy(sg).to("cuda"))
-                torch.cuda.synchronize()
-                card_s = time.perf_counter() - t0
-                syncs = gaussian.SYNCS - sy0
-                launches = gauss_launches() - la0
-                host = gaussian.COSACSampler(seed, device="cpu")
-                t0 = time.perf_counter()
-                want = host.sample(c, sg)
-                numpy_s = time.perf_counter() - t0
-            finally:
-                gaussian.MARGIN = saved
-                gaussian._settle = settle
-            errs["gauss"] = max(errs["gauss"], max_abs_err(
-                got, torch.from_numpy(want).to("cuda"), f"gauss {label}"))
-            if margin is not None and sum(settled) < 100:
-                raise AssertionError("gauss: the wide margin settled too few lanes")
-            draws.append(dict(label=label, lanes=len(c), card_s=card_s,
-                              numpy_s=numpy_s, syncs=syncs, launches=launches,
-                              steps=len(steps) - st0, settled=sum(settled)))
-            log(f"gauss COSAC {label}: {len(c)} lanes equal to numpy; on the "
-                f"card {card_s * 1e3:.2f} ms ({launches} gauss launches, "
-                f"{syncs} host syncs, {sum(settled)} lanes settled on the "
-                f"host), numpy sampler on the CPU {numpy_s * 1e3:.1f} ms")
-        seed = b"gauss noise mask"
-        sd = params.mask_mlwe_std_dev
-        n_mask = (params.mlwe_rank + params.in_msis_rank) * params.degree
-        got = gaussian.RoundedGaussianSampler(seed, device="cuda").sample_device(
-            0.0, sd, n_mask)
-        want = gaussian.RoundedGaussianSampler(seed, device="cpu").sample(
-            0.0, sd, n_mask)
-        errs["gauss"] = max(errs["gauss"], max_abs_err(
-            got, torch.from_numpy(want).to("cuda"), "gauss noise mask"))
-        log(f"gauss noise mask: {n_mask} lanes at sigma {sd} equal to numpy")
-    finally:
-        gaussian.gauss_cuda = cuda_step
-    # every recorded step against the plain version on the same tensors
-    largest, saved = {}, gaussian.MARGIN
-    for op, n, ins, outs, margin in steps:
-        gaussian.MARGIN = margin
+    n_mask = (params.mlwe_rank + params.in_msis_rank) * params.degree
+    cases = [("commit", "cosac", cm_c, cm_s, len(cm_c)),
+             ("noise mask", "rounded", 0.0, params.mask_mlwe_std_dev, n_mask),
+             ("PublicKey commit", "cosac", pk_c, pk_s, len(pk_c)),
+             ("bfv sigmas", "cosac", pk_c,
+              np.repeat([4.79, 6.77], len(pk_c) // 2), len(pk_c))]
+    held, largest = [0], {}
+
+    def hold_step(op, n, **ins):
+        """The step kernel against the plain version on the same tensors
+        (COSAC writes ``out`` in place: the kernel gets a copy)."""
+        mine = {k: v.clone() if k == "out" else v for k, v in ins.items()}
+        got = gaussian.gauss_cuda(op, n, **mine)
         want = gaussian.gauss_plain(op, n, **ins)
-        gaussian.MARGIN = saved
-        for k, (g, w) in enumerate(zip(outs, want)):
+        for k, (g, w) in enumerate(zip(got, want)):
             if (g is None) != (w is None):
                 raise AssertionError(f"gauss {gaussian.OPS[op]}: output {k}")
             if g is not None:   # floats compared as their bits
                 bits = lambda t: t.view(torch.int64) if t.is_floating_point() else t
                 errs["gauss"] = max(errs["gauss"], max_abs_err(
                     bits(g), bits(w), f"gauss {gaussian.OPS[op]} step of {n} lanes"))
-        if n > largest.get(op, (0,))[0] and margin == saved:
-            largest[op] = (n, ins)    # COSAC's timed calls rewrite a copy of out
-    log(f"gauss: {len(steps)} kernel steps equal to gauss_plain on the card")
+        held[0] += 1
+        if n > largest.get(op, (0,))[0] and gaussian.MARGIN == margin0:
+            largest[op] = (n, {k: v.clone() for k, v in ins.items()})
+        return want
+
+    loop, step, margin0 = gaussian.gauss_loop, gaussian.gauss_step, gaussian.MARGIN
+    lane_bytes, slack = gaussian.LANE_BYTES, gaussian.WINDOW_SLACK
+    draws, flagged, exhausted = [], 0, 0
+    try:
+        for label, kind, c, s, n in cases:
+            for mode, (margin, window) in GAUSS_MODES.items():
+                gaussian.MARGIN = margin0 if margin is None else margin
+                if window is None:
+                    gaussian.LANE_BYTES, gaussian.WINDOW_SLACK = lane_bytes, slack
+                else:   # every read-ahead of that size
+                    gaussian.LANE_BYTES = {k: (0, 0) for k in lane_bytes}
+                    gaussian.WINDOW_SLACK = window
+                seed = b"gauss " + label.encode() + b" " + mode.encode()
+                la0, sy0 = gauss_launches(), gaussian.SYNCS
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got, k_smp = gauss_call(gaussian, kind, seed, c, s, n, "cuda")
+                torch.cuda.synchronize()
+                card_ms = (time.perf_counter() - t0) * 1e3
+                k_last = dict(gaussian.LAST)
+                launches, syncs = gauss_launches() - la0, gaussian.SYNCS - sy0
+                gaussian.gauss_loop = gaussian.gauss_loop_plain
+                gaussian.gauss_step = hold_step
+                try:
+                    plain, p_smp = gauss_call(gaussian, kind, seed, c, s, n, "cuda")
+                finally:
+                    gaussian.gauss_loop, gaussian.gauss_step = loop, step
+                p_last = dict(gaussian.LAST)
+                want, h_smp = numpy_call(gaussian, kind, seed, c, s, n)
+                what = f"gauss loop {label}, {mode}"
+                errs["gauss"] = max(errs["gauss"], max_abs_err(got, plain, what))
+                errs["gauss"] = max(errs["gauss"], max_abs_err(
+                    got, torch.from_numpy(want).to("cuda"), what + " (numpy)"))
+                same_streams(k_smp, p_smp, what)
+                same_streams(k_smp, h_smp, what + " (numpy)")
+                for key in LAST_KEYS:
+                    if k_last[key] != p_last[key]:
+                        raise AssertionError(f"{what}: {key} {k_last[key]} != "
+                                             f"{p_last[key]} of the plain version")
+                if launches != k_last["launches"] or syncs != launches + \
+                        k_last["exits"].count("flagged"):
+                    raise AssertionError(f"{what}: {launches} launches, {syncs} syncs")
+                flagged += k_last["exits"].count("flagged")
+                exhausted += k_last["exits"].count("window exhausted")
+                draws.append(dict(label=label, mode=mode, lanes=n, card_ms=card_ms,
+                                  syncs=syncs, grid=k_last["grid"],
+                                  barriers=k_last["barriers"],
+                                  **{k: k_last[k] for k in LAST_KEYS}))
+                log(f"gauss loop {label} ({n} lanes, {mode}): equal to "
+                    f"gauss_loop_plain on the card and to numpy, streams too; "
+                    f"call {card_ms:.2f} ms on the host clock, {launches} "
+                    f"launches (exits {k_last['exits'] or 'none'}), {syncs} "
+                    f"syncs, {k_last['phases']} phases, {k_last['barriers']} "
+                    f"grid barriers (the kernel's), {k_last['rounds']} COSAC "
+                    f"rounds, grid "
+                    f"{k_last['grid']} blocks, bytes used / read ahead "
+                    f"{k_last['used']} / {k_last['read_ahead']}")
+    finally:
+        gaussian.MARGIN = margin0
+        gaussian.LANE_BYTES, gaussian.WINDOW_SLACK = lane_bytes, slack
+    if not flagged or not exhausted:
+        raise AssertionError(f"gauss loop: {flagged} flagged and {exhausted} "
+                             "window-exhausted resumes (both must be driven)")
+    log(f"gauss: {held[0]} steps of the plain loop equal to the step kernel "
+        f"on the card; {flagged} flagged and {exhausted} window-exhausted "
+        f"resumes driven")
+    loops = []
+    for label, kind, c, s, n in cases:
+        if kind != "cosac" or label == "bfv sigmas":
+            continue
+        ms, plain_ms, used, (b, by) = time_loop(gaussian, label, c, s, n)
+        loops.append(dict(label=label, lanes=n, ms=ms, plain_ms=plain_ms,
+                          used=used, bound_ms=b, bound_by=by))
+        log(f"gauss loop kernel, {label} ({n} lanes): {ms:.4f} ms a call, "
+            f"bound {b:.4f} ms ({by}: {24 * n} bytes of centres, sigmas and "
+            f"output, {used} stream bytes), share {b / ms:.3f}; "
+            f"gauss_loop_plain on the card {plain_ms:.3f} ms")
     passes = []
     for op, (n, ins) in sorted(largest.items()):
         name = gaussian.OPS[op]
@@ -797,16 +881,59 @@ def gauss_phase(params, params_pk, errs: dict):
         b, by = gauss_bound(name, n)
         passes.append(dict(op=name, lanes=n, ms=ms, plain_ms=plain_ms,
                            bound_ms=b, bound_by=by))
-        log(f"gauss {name} at {n} lanes: kernel {ms:.4f} ms, bound {b:.4f} ms "
-            f"({by}), share {b / ms:.3f}; plain {plain_ms:.4f} ms")
-    w = next(p for p in passes if p["op"] == "cosac")
+        log(f"gauss {name} step at {n} lanes: kernel {ms:.4f} ms, bound "
+            f"{b:.4f} ms ({by}), share {b / ms:.3f}; plain {plain_ms:.4f} ms")
+    w = loops[0]
     return dict(name="gaussian", route="cuda",
                 source="ringo_tpu_torch/csrc/gaussian.cu",
                 replaces="ringo_tpu/csprng/gaussian.py:440",
                 ms=w["ms"], plain_ms=w["plain_ms"], bound_ms=w["bound_ms"],
-                bound_by=w["bound_by"], library_ms=None, passes=passes,
-                draws=draws, shape=f"COSAC step, {w['lanes']} lanes",
-                kernel="gauss")
+                bound_by=w["bound_by"], library_ms=None, loops=loops,
+                passes=passes, draws=draws,
+                shape=f"loop call, {w['lanes']} COSAC lanes", kernel="gauss")
+
+
+def time_loop(gaussian, label: str, c, s, n: int):
+    """(loop kernel ms, plain version ms, stream bytes used, its
+    ``loop_bound``) of one COSAC call, each relaunched from the call's
+    first state on the same read-aheads (CUDA events; the plain version's
+    steps routed to ``gauss_plain``, the last run's steps counted)."""
+    import torch
+
+    smp = gaussian.COSACSampler(b"gauss timing " + label.encode(), device="cuda")
+    cc = torch.from_numpy(c).to("cuda")
+    c_int = torch.round(cc)
+    L = gaussian._Loop(gaussian.COSAC_CALL, n, "cuda", c=c_int, cf=c_int - cc,
+                       s=torch.from_numpy(s).to("cuda"), base=smp.base,
+                       rounded=smp.rounded.base)
+    st0, steps = L.st.copy(), []
+
+    def run(fn):
+        L.st[:] = st0
+        del steps[:]
+        fn(L)
+
+    ms = bench.time_ms(lambda: run(gaussian.gauss_loop_cuda))
+    torch.cuda.synchronize()
+    if int(L.st_pin[gaussian.S_STATUS]) != gaussian.DONE:
+        raise AssertionError(f"gauss loop {label}: the timed call exited")
+    out = L.out.clone()
+    step = gaussian.gauss_step
+    def plain_step(op, k, **kw):
+        steps.append((op, k))
+        return gaussian.gauss_plain(op, k, **kw)
+
+    gaussian.gauss_step = plain_step
+    try:
+        plain_ms = bench.time_ms(lambda: run(gaussian.gauss_loop_plain),
+                                 reps=1)
+    finally:
+        gaussian.gauss_step = step
+    if L.st[gaussian.S_STATUS] != gaussian.DONE:
+        raise AssertionError(f"gauss loop {label}: the plain call exited")
+    max_abs_err(out, L.out, f"gauss loop {label} (timed)")
+    used = int(L.st[gaussian.S_OFF_B] + L.st[gaussian.S_OFF_R])
+    return ms, plain_ms, used, loop_bound(n, used, steps)
 
 
 def gauss_launches() -> int:
@@ -1112,9 +1239,16 @@ def commit_phase(backend, jindo, params, checked):
     from ringo_tpu_torch.csprng import gaussian
 
     backend.reset_launches()
-    syncs0 = gaussian.SYNCS
+    syncs0, calls0, exits0 = gaussian.SYNCS, gaussian.CALLS, gaussian.EXITS
     (com, op), times, peak = timed(lambda: prv.commit(v))
     syncs = (gaussian.SYNCS - syncs0) / 3
+    calls = (gaussian.CALLS - calls0) / 3
+    exits = (gaussian.EXITS - exits0) / 3
+    gauss_per_commit = backend.LAUNCHES["gauss"] / 3
+    if gauss_per_commit != calls + exits or (not exits and syncs > 3):
+        raise AssertionError(
+            f"the Gaussian loop: {gauss_per_commit:g} launches and {syncs:g} "
+            f"syncs a commit for {calls:g} calls and {exits:g} exits")
     many, _, peak_many = timed(lambda: prv.commit_many([v, v2]), reps=1)
     launches = dict(backend.LAUNCHES)
     # the COSAC and noise-mask samplers drew everything on the card: none
@@ -1124,8 +1258,9 @@ def commit_phase(backend, jindo, params, checked):
                       ("noise mask", prv.rounded.base)):
         if smp._w1 != 0:
             raise AssertionError(f"the {name} sampler copied keystream to the host")
-    log(f"COSAC path: no keystream copied to the host; {syncs:g} host syncs "
-        f"of the Gaussian wavefront per commit")
+    log(f"COSAC path: no keystream copied to the host; per commit "
+        f"{gauss_per_commit:g} gauss launches ({calls:g} sample_device calls, "
+        f"{exits:g} exits) and {syncs:g} host syncs of the Gaussian loop")
     for c, o in [(com, op)] + many:
         check_commitment(params, c, o)
     med = statistics.median(times)
@@ -1142,6 +1277,8 @@ def commit_phase(backend, jindo, params, checked):
                coeffs_per_s=(1 << LOG_N) / med, crs_expand_s=crs_s,
                crs_launches=crs_launches, launches=launches, peak_mem_gib=peak,
                gauss_syncs_per_commit=syncs,
+               gauss_launches_per_commit=gauss_per_commit,
+               gauss_calls_per_commit=calls, gauss_exits_per_commit=exits,
                peak_mem_many_gib=peak_many, held_before_gib=held_before)
     return rec, (prv, v, com, op)
 

@@ -70,6 +70,7 @@ _SIGNATURES = {
     "ringo_aes256_ctr_fold": "pippip",
     "ringo_bigfield": "ippp",
     "ringo_gauss": "ipp",
+    "ringo_gauss_loop": "pp",
 }
 _CT = {"p": ctypes.c_void_p, "i": ctypes.c_int}
 

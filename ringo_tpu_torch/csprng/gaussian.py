@@ -1,5 +1,5 @@
 """Gaussian samplers: the host samplers of the reference, their device
-wavefront, and the device twin-CDT search.
+loop, and the device twin-CDT search.
 
 The host samplers (Ziggurat rounding, twin-CDT, COSAC) are the port's own
 numpy copy of ``ringo_tpu.csprng.gaussian``: the same decision rules in the
@@ -7,14 +7,16 @@ same stream order, so each draws exactly what the reference draws.  Each
 takes the device its uniform keystream is drawn on.
 
 ``RoundedGaussianSampler.sample_device`` and ``COSACSampler.sample_device``
-draw the same integers on tensors of the sampler's device: a wavefront over
-the pending lanes, each step one launch of csrc/gaussian.cu on a CUDA
-device (``gauss_cuda``) or its plain version in torch on the CPU
-(``gauss_plain``), fed by the uniform sampler's device draws in the numpy
-loop's stream order.  The host reads each step's counts (one sync a step,
-counted in ``SYNCS``) and decides, with the numpy rule on the same draws,
-the few lanes whose exp or log result passed within ``MARGIN`` of its
-threshold.
+draw the same integers on tensors of the sampler's device, each call one
+run of the whole rejection loop (``_draw``): on a CUDA device one launch of
+the loop kernel of csrc/gaussian.cu (``gauss_loop_cuda``), on the CPU its
+plain version in torch (``gauss_loop_plain``, one ``gauss_step`` a phase),
+reading the samplers' streams from read-aheads (``UniformSampler.
+read_ahead``) in the numpy loop's order, committed at the end.  The host
+reads the loop's state once a launch (one sync, counted in ``SYNCS``); the
+loop returns early only to have the host decide, with the numpy rule on
+the same draws, the few lanes whose exp or log result passed within
+``MARGIN`` of its threshold, or to read further ahead, and resumes.
 
 ``TwinCDTDevice`` is the commit path's search on tensors.  ``twin_search``
 runs the CUDA kernel (csrc/twin_search.cu) on a CUDA tensor and its plain
@@ -126,101 +128,17 @@ class RoundedGaussianSampler:
             raise ValueError("standard deviation not positive")
         return np.round(np.asarray(center) + self.norm_float(count) * std_dev).astype(np.int64)
 
-    def norm_float_device(self, count: int):
-        """``norm_float`` on the sampler's device: (x, src) float64
-        [count].  ``src`` is the uniform draw of a tail lane's accepted
-        ``uu`` (-1 elsewhere; None when no lane came from the tail): a tail
-        x went through this device's log and may differ from numpy's in
-        its last bits, so a later rounding or decision near its threshold
-        recomputes it from ``src``."""
-        base = self.base
-        dev = base.device
-        xs, srcs = [], []
-        filled = 0
-        while filled < count:
-            need = count - filled
-            r = base.sample_u64_device(need)
-            x, _, state, cnt = gauss_step(ZIG, need, r=r)
-            nw, nt = _read(cnt)
-            n_keep = need - nw - nt
-            src = None
-            if nw or nt:
-                order = _order(state)     # accepted, wedge, tail lanes
-            if nw:
-                widx = order[n_keep:n_keep + nw]
-                u = base.sample_u64_device(nw)
-                _, _, dec, cnt = gauss_step(WEDGE, nw, r=r, idx=widx, x=x, r2=u)
-                n_ok, n_flag = _read(cnt)
-                if n_flag:
-                    n_ok += int(_settle(dec, n_flag, _wedge_host,
-                                        u, r[widx], x[widx])[1].sum())
-                state[widx] = 1 - dec     # accepted -> 0, rejected -> 1
-                n_keep += n_ok
-            if nt:
-                tidx = order[need - nt:]
-                uu, tsrc = self._tail_device(nt)
-                tu = uu + RN
-                x[tidx] = torch.where(r[tidx] < 0, -tu, tu)
-                src = torch.full((need,), -1.0, dtype=torch.float64, device=dev)
-                src[tidx] = tsrc
-                state[tidx] = 0
-                n_keep += nt
-            if n_keep < need:
-                good = _order(state)[:n_keep]
-                x = x[good]
-                src = None if src is None else src[good]
-            xs.append(x)
-            srcs.append(src)
-            filled += n_keep
-        if all(sr is None for sr in srcs):
-            srcs = [None]
-        else:
-            srcs = [torch.full((len(x),), -1.0, dtype=torch.float64, device=dev)
-                    if sr is None else sr for x, sr in zip(xs, srcs)]
-        if len(xs) == 1:
-            return xs[0], srcs[0]
-        return torch.cat(xs), (None if srcs[0] is None else torch.cat(srcs))
-
-    def _tail_device(self, nt: int):
-        """The tail loop of ``norm_float`` for nt lanes: (uu, the uniform
-        draw it came from), float64 [nt]."""
-        base = self.base
-        dev = base.device
-        uu_all = torch.empty(nt, dtype=torch.float64, device=dev)
-        src = torch.empty(nt, dtype=torch.float64, device=dev)
-        pend = torch.arange(nt, device=dev)
-        while len(pend):
-            m = len(pend)
-            f = base.sample_u64_device(2 * m)      # uu's draws, then vv's
-            fa = f[:m]
-            uu, _, dec, cnt = gauss_step(TAIL, m, r=fa, r2=f[m:])
-            n_ok, n_flag = _read(cnt)
-            if n_flag:
-                n_ok += int(_settle(dec, n_flag, _tail_host, fa, f[m:])[1].sum())
-            order = _order(1 - dec)                # accepted lanes first
-            oi = order[:n_ok]
-            uu_all[pend[oi]] = uu[oi]
-            src[pend[oi]] = u64_to_unit_float(fa[oi])
-            pend = pend[order[n_ok:]]
-        return uu_all, src
-
     def sample_device(self, center, std_dev, count: int = 1) -> torch.Tensor:
         """``sample`` on the sampler's device: int64 [count]; ``center``
-        and ``std_dev`` are floats or float64 tensors [count] there."""
+        and ``std_dev`` are floats or float64 tensors [count] there.  One
+        launch of the loop kernel on the card (``gauss_loop``)."""
         dev = self.base.device
-        s = _lanes(std_dev, count, dev)
-        if bool((s <= 0).any()):
-            raise ValueError("standard deviation not positive")
-        if count == 0:
+        if count == 0:   # no launch: numpy's check alone
+            if bool((torch.as_tensor(std_dev) <= 0).any()):
+                raise ValueError("standard deviation not positive")
             return torch.empty(0, dtype=torch.int64, device=dev)
-        c = _lanes(center, count, dev)
-        x, src = self.norm_float_device(count)
-        _, out, dec, cnt = gauss_step(ROUND, count, x=x, src=src, center=c, s=s)
-        _, n_flag = _read(cnt)
-        if n_flag:
-            fi, _, val = _settle(dec, n_flag, _round_host, x, src, c, s)
-            out[fi] = torch.from_numpy(val).to(dev)
-        return out
+        return _draw(_Loop(ROUNDED, count, dev, c=_lanes(center, count, dev),
+                           s=_lanes(std_dev, count, dev), rounded=self.base))
 
 
 def compute_cdt(center: float, sigma: float) -> np.ndarray:
@@ -360,46 +278,20 @@ class COSACSampler:
 
     def sample_device(self, center, std_dev) -> torch.Tensor:
         """``sample`` on the sampler's device: centers float64 [n] there,
-        ``std_dev`` a float or float64 [n]; int64 [n]."""
+        ``std_dev`` a float or float64 [n]; int64 [n].  One launch of the
+        loop kernel on the card (``gauss_loop``)."""
         dev = self.base.device
         c = center.to(torch.float64).reshape(-1)
         n = c.shape[0]
         if n == 0:
             return torch.empty(0, dtype=torch.int64, device=dev)
-        s = _lanes(std_dev, n, dev)
         c_int = torch.round(c)
-        c_frac = c_int - c
-        r = self.base.sample_u64_device(n)
-        _, out, dec, cnt = gauss_step(DIRECT, n, r=r, cf=c_frac, s=s,
-                                      center=c_int)
-        n_ok, n_flag = _read(cnt)
-        if n_flag:
-            fi, ok, _ = _settle(dec, n_flag, _direct_host, r, c_frac, s)
-            n_ok += int(ok.sum())
-            acc = fi[torch.from_numpy(ok).to(dev)]
-            out[acc] = c_int[acc].to(torch.int64)
-        pend = _order(dec)[:n - n_ok]              # the rejected lanes, in order
-        while len(pend):
-            m = len(pend)
-            x, src = self.rounded.norm_float_device(m)
-            d = self.base.sample_u64_device(2 * m)  # the bits, then rr
-            y_round, _, dec, cnt = gauss_step(
-                COSAC, m, idx=pend, x=x, src=src, r=d[:m], r2=d[m:], cf=c_frac,
-                s=s, center=c_int, out=out)
-            n_ok, n_flag = _read(cnt)
-            if n_flag:
-                fi, ok, val = _settle(dec, n_flag, _cosac_host, x, src, d[:m],
-                                      d[m:], s[pend], c_frac[pend])
-                n_ok += int(ok.sum())
-                acc = torch.from_numpy(ok).to(dev)
-                lanes = pend[fi[acc]]
-                out[lanes] = (torch.from_numpy(val).to(dev)[acc]
-                              + c_int[lanes]).to(torch.int64)
-            pend = pend[_order(dec)[:m - n_ok]]
-        return out
+        return _draw(_Loop(COSAC_CALL, n, dev, c=c_int, cf=c_int - c,
+                           s=_lanes(std_dev, n, dev), base=self.base,
+                           rounded=self.rounded.base))
 
 
-# ------------------------------------------------- device wavefront steps
+# ------------------------------------------------------ device loop steps
 
 ZIG, WEDGE, TAIL, DIRECT, COSAC, ROUND = range(6)
 OPS = ("zig", "wedge", "tail", "direct", "cosac", "round")
@@ -410,7 +302,8 @@ OPS = ("zig", "wedge", "tail", "direct", "cosac", "round")
 MARGIN = 2.0 ** -40
 _TINY = 2.0 ** -1000
 SQRT_2PI = float(np.sqrt(2 * math.pi))   # numpy's, as the COSAC rule has it
-SYNCS = 0   # host reads of the wavefront (counts and flagged lanes)
+SYNCS = 0   # host syncs of the loop: one status read a launch, one a settle
+CALLS = EXITS = 0   # sample_device calls through the loop, and their exits
 
 # slots of the kernel's int64 header (csrc/gaussian.cu H_*)
 (H_N, H_R, H_R2, H_IDX, H_X, H_SRC, H_CF, H_S, H_CENTER, H_TAB, H_OUTF,
@@ -425,13 +318,6 @@ def _lanes(v, n: int, dev) -> torch.Tensor:
     return t.expand(n).contiguous() if t.numel() == 1 else t.contiguous()
 
 
-def _read(cnt: torch.Tensor) -> list[int]:
-    """A step's two counts on the host (a sync on the card)."""
-    global SYNCS
-    SYNCS += 1
-    return cnt.tolist()
-
-
 def _settle(dec: torch.Tensor, n_flag: int, rule, *ins):
     """Decide the ``n_flag`` flagged lanes of ``dec`` (2) on the host:
     ``rule`` gets each input's flagged entries as numpy arrays and returns
@@ -443,11 +329,6 @@ def _settle(dec: torch.Tensor, n_flag: int, rule, *ins):
     ok, val = rule(*[None if t is None else t[fi].cpu().numpy() for t in ins])
     dec[fi] = torch.from_numpy(ok.astype(np.int8)).to(dec.device)
     return fi, ok, val
-
-
-def _order(dec: torch.Tensor) -> torch.Tensor:
-    """The lanes sorted by class, stable: lane order within each class."""
-    return torch.sort(dec, stable=True).indices
 
 
 def _unit_np(raw: np.ndarray) -> np.ndarray:
@@ -524,7 +405,7 @@ def _dec(flag, ok):
 
 def gauss_plain(op: int, n: int, r=None, r2=None, idx=None, x=None,
                 src=None, cf=None, s=None, center=None, out=None):
-    """Plain version of one wavefront step (csrc/gaussian.cu states each
+    """Plain version of one loop step (csrc/gaussian.cu states each
     op): the kernel's arithmetic in torch ops, one IEEE rounding per numpy
     operation in numpy's order, the same margin rule, on the inputs'
     device.  Returns (out_f, out_i, dec int8 [n], counts int32 [2]);
@@ -648,12 +529,387 @@ def gauss_cuda(op: int, n: int, r=None, r2=None, idx=None, x=None,
 
 
 def gauss_step(op: int, n: int, **ins):
-    """One wavefront step: the kernel when the inputs lie on the card, the
-    plain version on the CPU."""
+    """One step of the loop (the per-op unit): the step kernel when the
+    inputs lie on the card, the plain version on the CPU."""
     t = next(v for v in ins.values() if v is not None)
     if t.is_cuda:
         return gauss_cuda(op, n, **ins)
     return gauss_plain(op, n, **ins)
+
+
+# ------------------------------------------- the loop: one launch a call
+
+COSAC_CALL, ROUNDED = range(2)    # what a loop draws
+(P_CHECK, P_DIRECT, P_ZIG, P_WEDGE, P_TAIL, P_KEEP, P_COSAC, P_ROUND,
+ P_DONE) = range(9)
+PHASES = ("check", "direct", "zig", "wedge", "tail", "keep", "cosac",
+          "round", "done")
+DONE, FLAGGED, EXHAUSTED, BAD_SIGMA = range(4)
+STATUSES = ("done", "flagged", "window exhausted", "std_dev not positive")
+# slots of the loop's int64 state (csrc/gaussian.cu S_*)
+(S_STATUS, S_PHASE, S_STAGE, S_M, S_FILLED, S_NEED, S_NW, S_NT, S_PP, S_TPP,
+ S_OFF_B, S_OFF_R, S_WANT, S_NFLAG, S_PHASES, S_BARRIERS, S_ROUNDS, S_GRID,
+ S_LEN) = range(19)
+# slots of the loop kernel's int64 arguments (csrc/gaussian.cu A_*); the
+# state follows them
+(A_KIND, A_N, A_C, A_CF, A_S, A_OUT, A_WIN_B, A_START_B, A_LEN_B, A_WIN_R,
+ A_START_R, A_LEN_R, A_P, A_TP, A_W, A_X, A_SRC, A_RZ, A_XZ, A_SRCZ, A_ZST,
+ A_DEC, A_BLK, A_BLK_CAP, A_ST_OUT, A_TAB, A_MARGIN, A_INV_RN, A_SQ2PI, A_RN,
+ A_ST) = range(31)
+A_LEN = A_ST + S_LEN
+BLK_CAP = 4096   # blocks the loop kernel's count array holds
+# stream bytes a lane reads ahead (base, rounded): a COSAC lane takes about
+# 5 u64 of the base stream and 2 of the rounded one, a rounded lane about
+# 1 (the numpy samplers at the commit's and bfv's sigmas), plus slack.
+LANE_BYTES = {COSAC_CALL: (42, 18), ROUNDED: (0, 9)}
+WINDOW_SLACK = 1 << 16
+LAST = {}   # the last call: launches, exits, phases, barriers, bytes
+
+
+class _Loop:
+    """One ``sample_device`` call: its inputs and output, the pending
+    lists (COSAC lanes ``P`` and Ziggurat tail lanes ``TP``, each a
+    ping-pong pair; wedge lanes ``W``), the norm_float values ``X`` / ``SRC``,
+    the Ziggurat batch (``rz``, ``xz``, ``srcz``, ``zst``), a phase's
+    decisions ``dec``, the read-aheads of its streams (0 the base, 1 the
+    rounded one) and ``st``, the state (numpy int64 [S_LEN]) that the
+    kernel or its plain version advances."""
+
+    def __init__(self, kind: int, n: int, dev, c, s, cf=None, base=None,
+                 rounded=None):
+        self.kind, self.n, self.dev = kind, n, torch.device(dev)
+        self.c, self.cf, self.s = c, cf, s
+        self.smp = (base, rounded)
+        i64 = lambda *shape: torch.empty(shape, dtype=torch.int64, device=dev)
+        f64 = lambda: torch.empty(n, dtype=torch.float64, device=dev)
+        self.out = i64(n)
+        self.P = i64(2, n) if kind == COSAC_CALL else None
+        self.TP, self.W, self.rz = i64(2, n), i64(n), i64(n)
+        self.X, self.SRC, self.xz, self.srcz = f64(), f64(), f64(), f64()
+        self.zst = torch.empty(n, dtype=torch.int8, device=dev)
+        self.dec = torch.empty(n, dtype=torch.int8, device=dev)
+        self.st = np.zeros(S_LEN, dtype=np.int64)
+        self.st[S_PHASE] = P_DIRECT if kind == COSAC_CALL else P_CHECK
+        self.win = [None, None]
+        self.used, self.ahead = [0, 0], [0, 0]
+        self.blk = self.st_dev = self.st_pin = None   # the kernel's, lazily
+        for w in (0, 1):
+            if self.smp[w] is not None:
+                self.open(w, self.budget(w))
+
+    def budget(self, w: int) -> int:
+        return LANE_BYTES[self.kind][w] * self.n + WINDOW_SLACK
+
+    def open(self, w: int, nbytes: int) -> None:
+        self.win[w] = self.smp[w].read_ahead(nbytes)
+        self.ahead[w] += self.win[w][2]
+
+    def take(self, w: int) -> None:
+        """Commit stream w's bytes read so far; its offset goes to 0."""
+        slot = S_OFF_B if w == 0 else S_OFF_R
+        off = int(self.st[slot])
+        self.smp[w].commit(off)
+        self.used[w] += off
+        self.st[slot] = 0
+
+    def draws(self, w: int, off: int, count: int) -> torch.Tensor:
+        """``count`` raw u64 draws (int64) of stream w from byte ``off``
+        of its read-ahead."""
+        ext, start, _ = self.win[w]
+        b = ext[start + off:start + off + 8 * count]
+        if b.storage_offset() % 8:     # an int64 view needs 8-byte alignment
+            b = b.clone()
+        return b.view(torch.int64)
+
+
+def _draw(L: _Loop) -> torch.Tensor:
+    """Drive one call to its end, the same protocol on the card and on
+    the CPU: launch (``gauss_loop``), read the state (one sync), then on
+    an exit decide the flagged lanes on the host or read further ahead,
+    and launch again, the kernel resuming from its state; at the end
+    commit both streams.  A std_dev not positive raises before any
+    stream is committed, as numpy's check leaves the sampler."""
+    global SYNCS, CALLS, EXITS
+    CALLS += 1
+    launches, exits = 0, []
+    while True:
+        gauss_loop(L)
+        launches += 1
+        if L.st_pin is not None:
+            torch.cuda.current_stream(L.dev).synchronize()
+            L.st[:] = L.st_pin.numpy()
+        SYNCS += 1
+        status = int(L.st[S_STATUS])
+        if status == DONE:
+            break
+        exits.append(STATUSES[status])
+        EXITS += 1
+        if status == BAD_SIGMA:
+            raise ValueError("standard deviation not positive")
+        if status == FLAGGED:
+            _settle_phase(L)
+        else:
+            w = 0 if L.st[S_PHASE] in (P_DIRECT, P_COSAC) else 1
+            L.take(w)
+            L.open(w, int(L.st[S_WANT]) + L.budget(w))
+    for w in (0, 1):
+        if L.smp[w] is not None:
+            L.take(w)
+    LAST.clear()
+    LAST.update(lanes=L.n, launches=launches, exits=exits,
+                phases=int(L.st[S_PHASES]), barriers=int(L.st[S_BARRIERS]),
+                rounds=int(L.st[S_ROUNDS]), grid=int(L.st[S_GRID]),
+                used=list(L.used), read_ahead=list(L.ahead))
+    return L.out
+
+
+def _settle_phase(L: _Loop) -> None:
+    """The flagged lanes of the phase that exited, decided on the host by
+    the numpy rule on the same draws (``_settle``): ``dec`` takes the
+    decisions and ``out`` the values; the loop resumes at the phase's
+    compaction."""
+    st, dev = L.st, L.dev
+    ph, k = int(st[S_PHASE]), int(st[S_NFLAG])
+    off_b, off_r, n = int(st[S_OFF_B]), int(st[S_OFF_R]), L.n
+    if ph == P_DIRECT:
+        fi, ok, _ = _settle(L.dec[:n], k, _direct_host, L.draws(0, off_b, n),
+                            L.cf, L.s)
+        acc = fi[torch.from_numpy(ok).to(dev)]
+        L.out[acc] = L.c[acc].to(torch.int64)
+    elif ph == P_WEDGE:
+        nw = int(st[S_NW])
+        w = L.W[:nw]
+        _settle(L.dec[:nw], k, _wedge_host, L.draws(1, off_r, nw), L.rz[w],
+                L.xz[w])
+    elif ph == P_TAIL:
+        nt = int(st[S_NT])
+        f = L.draws(1, off_r, 2 * nt)
+        _settle(L.dec[:nt], k, _tail_host, f[:nt], f[nt:])
+    elif ph == P_COSAC:
+        m = int(st[S_M])
+        pend = L.P[int(st[S_PP]), :m]
+        d = L.draws(0, off_b, 2 * m)
+        fi, ok, val = _settle(L.dec[:m], k, _cosac_host, L.X[:m], L.SRC[:m],
+                              d[:m], d[m:], L.s[pend], L.cf[pend])
+        acc = torch.from_numpy(ok).to(dev)
+        lanes = pend[fi[acc]]
+        L.out[lanes] = (torch.from_numpy(val).to(dev)[acc]
+                        + L.c[lanes]).to(torch.int64)
+    else:   # P_ROUND
+        fi, _, val = _settle(L.dec[:n], k, _round_host, L.X[:n], L.SRC[:n],
+                             L.c, L.s)
+        L.out[fi] = torch.from_numpy(val).to(dev)
+
+
+def gauss_loop(L: _Loop) -> None:
+    """Run the loop from ``L.st`` until the call is done or must exit:
+    the kernel when the call's tensors lie on the card, the plain version
+    on the CPU."""
+    if L.dev.type == "cuda":
+        gauss_loop_cuda(L)
+    else:
+        gauss_loop_plain(L)
+
+
+def gauss_loop_plain(L: _Loop) -> None:
+    """Plain version of the loop kernel (csrc/gaussian.cu states the
+    phases): the same phase machine over L's tensors on their device, one
+    ``gauss_step`` a phase (``gauss_plain`` on the CPU), the same read-ahead
+    offsets, the same exits (flagged lanes after a phase's decisions, a
+    read-ahead too short before a phase's draws, a std_dev not positive)
+    and the same resume at the phase and stage ``L.st`` holds; advances
+    ``L.st`` as the kernel does, its count of phases too (the grid
+    barriers are the kernel's alone)."""
+    st, n = L.st, L.n
+
+    def short(w: int, nbytes: int) -> bool:
+        if st[S_OFF_B if w == 0 else S_OFF_R] + nbytes <= L.win[w][2]:
+            return False
+        st[S_STATUS], st[S_WANT] = EXHAUSTED, nbytes
+        return True
+
+    def flagged(cnt) -> bool:
+        st[S_PHASES] += 1
+        k = int(cnt[1])
+        if k:
+            st[S_STATUS], st[S_NFLAG], st[S_STAGE] = FLAGGED, k, 1
+        return k > 0
+
+    def rejected(count: int) -> torch.Tensor:
+        return torch.nonzero(L.dec[:count] == 0).reshape(-1)
+
+    while True:
+        ph, resume = int(st[S_PHASE]), int(st[S_STAGE]) == 1
+        if ph == P_CHECK:
+            st[S_PHASES] += 1
+            if bool((L.s <= 0).any()):
+                st[S_STATUS] = BAD_SIGMA
+                return
+            st[S_M], st[S_FILLED], st[S_PHASE] = n, 0, P_ZIG
+        elif ph == P_DIRECT:
+            off = int(st[S_OFF_B])
+            if not resume:
+                if short(0, 8 * n):
+                    return
+                _, out_i, dec, cnt = gauss_step(
+                    DIRECT, n, r=L.draws(0, off, n), cf=L.cf, s=L.s,
+                    center=L.c)
+                L.out.copy_(out_i)
+                L.dec[:n] = dec
+                if flagged(cnt):
+                    return
+            rej = rejected(n)
+            L.P[0, :len(rej)] = rej
+            st[S_OFF_B] = off + 8 * n
+            st[S_M], st[S_PP], st[S_FILLED], st[S_STAGE] = len(rej), 0, 0, 0
+            st[S_PHASE] = P_ZIG if len(rej) else P_DONE
+        elif ph == P_ZIG:
+            need = int(st[S_M] - st[S_FILLED])
+            if short(1, 8 * need):
+                return
+            off = int(st[S_OFF_R])
+            r = L.draws(1, off, need)
+            x, _, dec, cnt = gauss_step(ZIG, need, r=r)
+            L.rz[:need], L.xz[:need], L.zst[:need] = r, x, dec
+            L.srcz[:need] = -1.0
+            st[S_PHASES] += 1
+            w = torch.nonzero(dec == 1).reshape(-1)
+            t = torch.nonzero(dec == 2).reshape(-1)
+            L.W[:len(w)], L.TP[0, :len(t)] = w, t
+            st[S_OFF_R] = off + 8 * need
+            st[S_NEED], st[S_NW], st[S_NT], st[S_TPP] = need, len(w), len(t), 0
+            st[S_PHASE] = P_WEDGE if len(w) else P_TAIL if len(t) else P_KEEP
+        elif ph == P_WEDGE:
+            nw, need, off = int(st[S_NW]), int(st[S_NEED]), int(st[S_OFF_R])
+            w = L.W[:nw]
+            if not resume:
+                if short(1, 8 * nw):
+                    return
+                _, _, dec, cnt = gauss_step(
+                    WEDGE, nw, r=L.rz[:need], idx=w, x=L.xz[:need],
+                    r2=L.draws(1, off, nw))
+                L.dec[:nw] = dec
+                if flagged(cnt):
+                    return
+            L.zst[w] = torch.where(L.dec[:nw] == 1, 0, 3).to(torch.int8)
+            st[S_OFF_R] = off + 8 * nw
+            st[S_STAGE] = 0
+            st[S_PHASE] = P_TAIL if st[S_NT] else P_KEEP
+        elif ph == P_TAIL:
+            nt, tpp, off = int(st[S_NT]), int(st[S_TPP]), int(st[S_OFF_R])
+            t = L.TP[tpp, :nt]
+            if not resume:
+                if short(1, 16 * nt):
+                    return
+                f = L.draws(1, off, 2 * nt)
+                uu, _, dec, cnt = gauss_step(TAIL, nt, r=f[:nt], r2=f[nt:])
+                tu = uu + RN
+                L.xz[t] = torch.where(L.rz[t] < 0, -tu, tu)
+                L.srcz[t] = u64_to_unit_float(f[:nt])
+                L.dec[:nt] = dec
+                if flagged(cnt):
+                    return
+            rej = rejected(nt)
+            L.TP[1 - tpp, :len(rej)] = t[rej]
+            st[S_OFF_R] = off + 16 * nt
+            st[S_NT], st[S_TPP], st[S_STAGE] = len(rej), 1 - tpp, 0
+            st[S_PHASE] = P_TAIL if len(rej) else P_KEEP
+        elif ph == P_KEEP:
+            need, filled = int(st[S_NEED]), int(st[S_FILLED])
+            keep = torch.nonzero(L.zst[:need] != 3).reshape(-1)
+            k = len(keep)
+            L.X[filled:filled + k] = L.xz[keep]
+            L.SRC[filled:filled + k] = L.srcz[keep]
+            st[S_PHASES] += 1
+            st[S_FILLED] = filled + k
+            st[S_PHASE] = (P_ZIG if filled + k < st[S_M] else
+                           P_COSAC if L.kind == COSAC_CALL else P_ROUND)
+        elif ph == P_COSAC:
+            m, pp, off = int(st[S_M]), int(st[S_PP]), int(st[S_OFF_B])
+            pend = L.P[pp, :m]
+            if not resume:
+                if short(0, 16 * m):
+                    return
+                d = L.draws(0, off, 2 * m)
+                _, _, dec, cnt = gauss_step(
+                    COSAC, m, idx=pend, x=L.X[:m], src=L.SRC[:m], r=d[:m],
+                    r2=d[m:], cf=L.cf, s=L.s, center=L.c, out=L.out)
+                L.dec[:m] = dec
+                if flagged(cnt):
+                    return
+            rej = rejected(m)
+            L.P[1 - pp, :len(rej)] = pend[rej]
+            st[S_OFF_B] = off + 16 * m
+            st[S_M], st[S_PP], st[S_STAGE] = len(rej), 1 - pp, 0
+            st[S_FILLED] = 0
+            st[S_ROUNDS] += 1
+            st[S_PHASE] = P_ZIG if len(rej) else P_DONE
+        elif ph == P_ROUND:
+            if not resume:
+                _, out_i, dec, cnt = gauss_step(
+                    ROUND, n, x=L.X, src=L.SRC, center=L.c, s=L.s)
+                L.out.copy_(out_i)
+                L.dec[:n] = dec
+                if flagged(cnt):
+                    return
+            st[S_STAGE] = 0
+            st[S_PHASE] = P_DONE
+        else:   # P_DONE
+            st[S_STATUS] = DONE
+            return
+
+
+def gauss_loop_cuda(L: _Loop) -> None:
+    """One cooperative launch of the loop kernel (csrc/gaussian.cu,
+    ``ringo_gauss_loop``) over L's tensors on one card, from the state
+    ``L.st``; the state it ends in is copied to a pinned host buffer
+    (``L.st_pin``) that the caller reads after a sync."""
+    ts = dict(c=(L.c, torch.float64), s=(L.s, torch.float64),
+              out=(L.out, torch.int64), TP=(L.TP, torch.int64),
+              W=(L.W, torch.int64), X=(L.X, torch.float64),
+              SRC=(L.SRC, torch.float64), rz=(L.rz, torch.int64),
+              xz=(L.xz, torch.float64), srcz=(L.srcz, torch.float64),
+              zst=(L.zst, torch.int8), dec=(L.dec, torch.int8))
+    if L.kind == COSAC_CALL:
+        ts.update(cf=(L.cf, torch.float64), P=(L.P, torch.int64))
+    for name, (t, dt) in ts.items():
+        backend.require(t, dt, name=name)
+        if not t.is_cuda or t.device != L.out.device:
+            raise ValueError(f"gauss_loop: {name} is not on the call's card")
+        if name not in ("P", "TP") and t.shape[0] != L.n:
+            raise ValueError(f"gauss_loop: {name} has not {L.n} lanes")
+    if not 0 < L.n < 1 << 31:
+        raise ValueError("gauss_loop: lane count out of range")
+    dev = L.out.device
+    if L.blk is None:
+        L.blk = torch.empty(4 * BLK_CAP, dtype=torch.int32, device=dev)
+        L.st_dev = torch.empty(S_LEN, dtype=torch.int64, device=dev)
+        L.st_pin = torch.empty(S_LEN, dtype=torch.int64, pin_memory=True)
+    a = np.zeros(A_LEN, dtype=np.int64)
+    a[A_KIND], a[A_N] = L.kind, L.n
+    for slot, name in ((A_C, "c"), (A_CF, "cf"), (A_S, "s"), (A_OUT, "out"),
+                       (A_P, "P"), (A_TP, "TP"), (A_W, "W"), (A_X, "X"),
+                       (A_SRC, "SRC"), (A_RZ, "rz"), (A_XZ, "xz"),
+                       (A_SRCZ, "srcz"), (A_ZST, "zst"), (A_DEC, "dec")):
+        if name in ts:
+            a[slot] = ts[name][0].data_ptr()
+    for w, (p_win, p_start, p_len) in enumerate(
+            ((A_WIN_B, A_START_B, A_LEN_B), (A_WIN_R, A_START_R, A_LEN_R))):
+        if L.win[w] is not None:
+            ext, start, avail = L.win[w]
+            if not ext.is_cuda or ext.device != dev:
+                raise ValueError("gauss_loop: a read-ahead is not on the card")
+            a[p_win], a[p_start], a[p_len] = ext.data_ptr(), start, avail
+    a[A_BLK], a[A_BLK_CAP] = L.blk.data_ptr(), BLK_CAP
+    a[A_ST_OUT] = L.st_dev.data_ptr()
+    a[A_TAB] = _tables(dev).data_ptr()
+    a[A_MARGIN:A_RN + 1] = np.array([MARGIN, 1.0 / RN, SQRT_2PI, RN],
+                                    dtype=np.float64).view(np.int64)
+    a[A_ST:] = L.st
+    err = backend.lib().ringo_gauss_loop(a.ctypes.data, backend.stream_ptr(L.out))
+    backend.check(err, "gauss_loop")
+    backend.LAUNCHES["gauss"] += 1
+    L.st_pin.copy_(L.st_dev, non_blocking=True)
 
 
 # ------------------------------------------------------- device search

@@ -16,14 +16,17 @@ in exact scalar order.  A large draw XORs its 8 KiB chunks with one
 cumulative XOR over uint64 words, which is what the refill loop computes
 one chunk at a time.
 
+``read_ahead(nbytes)`` reads ahead on the sampler's device: the 8 KiB buffer
+followed by the next refills folded behind it, on a CUDA device by the
+kernel's fold entry (``fold_cuda``: keystream and cumulative XOR in one
+launch, nothing copied to the host), on the CPU by the plain version
+``fold_plain``.  A consumer on the card reads what it needs from it and
+``commit(used)`` then advances the sampler exactly as ``_take_bytes`` of
+``used`` bytes would (the Gaussian loop kernel draws so).
 ``sample_u64_device`` / ``sample_float_device`` draw the same values as
-``sample_u64`` / ``sample_float`` and advance the sampler alike, but
-return tensors on the sampler's device.  On a CUDA device the refills are
-folded on the card by the kernel's fold entry (``fold_cuda``: keystream
-and cumulative XOR in one launch, nothing copied to the host); on the CPU
-by the plain version ``fold_plain``.  The 8 KiB buffer then stays where
-the last draw left it and is copied across only when a draw of the other
-kind follows.
+``sample_u64`` / ``sample_float`` through a read-ahead.  The 8 KiB buffer
+then stays where the last draw left it and is copied across only when a
+draw of the other kind follows.
 """
 
 from __future__ import annotations
@@ -302,18 +305,24 @@ class UniformSampler:
         self._consumed = 0  # keystream bytes consumed so far
         self._buf = np.zeros(BUF_SIZE, dtype=np.uint8)
         self._ptr = BUF_SIZE
+        self._ahead = None  # the last read_ahead: (ext, its start, its refills)
 
     # -- keystream plumbing --------------------------------------------------
 
     def _keystream(self, n: int) -> np.ndarray:
-        """The next n keystream bytes, sliced from the read-ahead window;
-        a request that leaves it refills it with ``window`` blocks from
-        the first block the request needs, and one larger than the window
-        is drawn on its own and not kept."""
-        pos = self._consumed
+        """The next n keystream bytes (``_keystream_at`` the consumed
+        position), consumed."""
+        ks = self._keystream_at(self._consumed, n)
+        self._consumed += n
+        return ks
+
+    def _keystream_at(self, pos: int, n: int) -> np.ndarray:
+        """n keystream bytes from byte ``pos``, sliced from the read-ahead
+        window; a request that leaves it refills it with ``window`` blocks
+        from the first block the request needs, and one larger than the
+        window is drawn on its own and not kept."""
         b0 = pos // 16
         b1 = -(-(pos + n) // 16)
-        self._consumed += n
         if not self._w0 <= b0 <= b1 <= self._w1:
             if b1 - b0 > self.window:
                 ks = keystream(self._rk, self._iv, b0, b1 - b0, self.device)
@@ -373,31 +382,62 @@ class UniformSampler:
             self._ptr = rem - (m - 1) * BUF_SIZE
         return out
 
-    def _take_bytes_device(self, n: int) -> torch.Tensor:
-        """``_take_bytes`` as a uint8 [n] tensor on the sampler's device,
-        to be read only (it may share memory with the buffer).  The m
-        refills are folded behind a copy of the buffer in one tensor
-        (``fold_cuda`` on the card, ``fold_plain`` over the host keystream
-        on the CPU), so the draw is a slice of it."""
+    def read_ahead(self, nbytes: int):
+        """Read-ahead of at least ``nbytes`` stream bytes on the sampler's
+        device, for a consumer that decides on the card how many it takes:
+        (ext, start, avail), ext uint8 on the device holding the 8 KiB
+        buffer and then m refills folded behind it (``fold_cuda`` on the
+        card, ``fold_plain`` over the host keystream on the CPU), plus 8
+        bytes of padding; the next byte ``_take_bytes`` would return is
+        ext[start], and ``avail`` bytes from it are read ahead.  Changes
+        no state: ``commit(used)`` does.  (``window`` is the host
+        read-ahead's size in counter blocks, another thing.)"""
         buf = self._device_buf()
         ptr = self._ptr
-        if ptr + n <= BUF_SIZE:
-            self._ptr += n
-            return buf[ptr:ptr + n]
-        rem = n - (BUF_SIZE - ptr)
-        m = -(-rem // BUF_SIZE)
-        ext = torch.empty((m + 1) * BUF_SIZE, dtype=torch.uint8,
+        m = max(0, -(-(nbytes - (BUF_SIZE - ptr)) // BUF_SIZE))
+        ext = torch.empty((m + 1) * BUF_SIZE + 8, dtype=torch.uint8,
                           device=self.device)
         ext[:BUF_SIZE].copy_(buf)
-        if self.device.type == "cuda":
-            fold_cuda(self._rk, self._iv, self._consumed, buf, ext[BUF_SIZE:])
-            self._consumed += m * BUF_SIZE
-        else:
-            ks = torch.from_numpy(self._keystream(m * BUF_SIZE).copy())
-            ext[BUF_SIZE:] = fold_plain(buf, ks)
-        self._buf = ext[m * BUF_SIZE:]
-        self._ptr = rem - (m - 1) * BUF_SIZE
-        return ext[ptr:ptr + n]
+        ext[-8:].zero_()
+        if m and self.device.type == "cuda":
+            fold_cuda(self._rk, self._iv, self._consumed, buf,
+                      ext[BUF_SIZE:-8])
+        elif m:
+            ks = self._keystream_at(self._consumed, m * BUF_SIZE)
+            ext[BUF_SIZE:-8] = fold_plain(buf, torch.from_numpy(ks.copy()))
+        self._ahead = (ext, ptr, m)
+        return ext, ptr, (m + 1) * BUF_SIZE - ptr
+
+    def commit(self, used: int) -> None:
+        """Take ``used`` bytes of the last ``read_ahead``: leaves the sampler
+        as ``_take_bytes(used)`` would have left it (its buffer on the
+        device)."""
+        ext, ptr, m = self._ahead
+        if ptr != self._ptr:
+            raise RuntimeError("commit: the sampler moved since its read-ahead")
+        self._ahead = None
+        if ptr + used <= BUF_SIZE:
+            self._ptr += used
+            return
+        rem = used - (BUF_SIZE - ptr)
+        k = -(-rem // BUF_SIZE)
+        if k > m:
+            raise ValueError(f"commit: {used} bytes exceed the read-ahead")
+        self._buf = ext[k * BUF_SIZE:(k + 1) * BUF_SIZE]
+        self._ptr = rem - (k - 1) * BUF_SIZE
+        self._consumed += k * BUF_SIZE
+
+    def _take_bytes_device(self, n: int) -> torch.Tensor:
+        """``_take_bytes`` as a uint8 [n] tensor on the sampler's device,
+        to be read only (it shares memory with the buffer): a slice of the
+        buffer, or of a ``read_ahead``, committed, when it needs refills."""
+        if self._ptr + n <= BUF_SIZE:
+            buf, ptr = self._device_buf(), self._ptr
+            self._ptr += n
+            return buf[ptr:ptr + n]
+        ext, start, _ = self.read_ahead(n)
+        self.commit(n)
+        return ext[start:start + n]
 
     # -- sampling ------------------------------------------------------------
 

@@ -136,10 +136,17 @@ class Commitment:
 
 
 def _planes_from_bytes(data: bytes, shape) -> torch.Tensor:
-    """Little-endian uint64 words -> digit planes [2, *shape]."""
+    """Little-endian uint64 words -> digit planes [2, *shape].  A word
+    takes only its canonical form, below 2^32: ``from_u64`` drops the high
+    bits, so a word with any of them set would spell a second byte string
+    of the same object (one proof, one encoding).  The JAX package drops
+    them and accepts such bytes."""
     if len(data) != 8 * int(np.prod(shape)):
         raise ValueError("byte length mismatch")
-    return RnsRing.from_u64(np.frombuffer(data, dtype="<u8").reshape(shape))
+    words = np.frombuffer(data, dtype="<u8").reshape(shape)
+    if (words >> np.uint64(32)).any():
+        raise ValueError("a residue word is not below 2^32")
+    return RnsRing.from_u64(words)
 
 
 class Opening:

@@ -26,13 +26,18 @@ keeps XLA:CPU from contracting float64 multiply-adds into FMA
 (torch_buckler_cases.NO_FMA says why); the slow test needs it too.
 """
 
+import os
 import sys
 
 import numpy as np
 import pytest
 
 from ringo_tpu import buckler as ref_bk
+from ringo_tpu import jindo as ref_jindo
+from ringo_tpu.fields import ZP255 as REF_ZP255
 from ringo_tpu_torch import buckler as bk
+from ringo_tpu_torch import jindo as tj
+from ringo_tpu_torch.fields import ZP255
 
 import torch_buckler_cases as cases
 from torch_buckler_cases import one_torch_thread  # noqa: F401
@@ -109,6 +114,65 @@ def test_non_canonical_scalars_are_refused(which):
     # the canonical bytes decode and verify as before
     back = bk.Proof.from_bytes(params, data)
     assert port["vrf"].verify(port["public"], back) is True
+
+
+def _jindo_round_trip():
+    """The Jindo round-trip fixture (ZP255, N = 2^10, the JAX package's
+    bytes): parameters of both packages, point, evaluation, commitment and
+    proof bytes."""
+    fx = np.load(os.path.join(os.path.dirname(cases.FIXTURE),
+                              "roundtrip_zp255_n10.npz"))
+    n = 1 << int(fx["log_n"])
+    return dict(crs=bytes(fx["crs"]),
+                params=tj.new_parameters(ZP255, n, 1),
+                ref_params=ref_jindo.new_parameters(REF_ZP255, n, 1),
+                x=int.from_bytes(bytes(fx["x"]), "big"),
+                y=int.from_bytes(bytes(fx["evaluation"]), "big"),
+                com=bytes(fx["commit_bytes"]), pf=bytes(fx["proof_bytes"]))
+
+
+def _flip(data: bytes, word: int, bit: int) -> bytes:
+    b = bytearray(data)
+    b[8 * word + bit // 8] ^= 1 << (bit % 8)
+    return bytes(b)
+
+
+@pytest.mark.parametrize("bit", [32, 47, 63])
+@pytest.mark.parametrize("target", ["jindo_proof", "jindo_commitment",
+                                    "buckler_witness"])
+def test_high_word_bits_are_refused(target, bit):
+    """A residue word of the wire format with a bit of 32-63 set (a second
+    byte string of the same object) makes the port's decoder raise
+    ValueError.  The JAX package drops those bits, and its numpy-backend
+    verifier accepts the changed bytes: that verdict is held here beside
+    the port's.  Jindo at ZP255, N = 2^10 (the round-trip fixture); Buckler
+    PublicKey at ZP220, N = 2^8 (its first witness commitment)."""
+    word = {32: 0, 47: 5, 63: 100}[bit]
+    if target == "buckler_witness":
+        port = cases.port_case("public_key")
+        ref = cases.ref_numpy_case("public_key")
+        head = 4 + 8                      # witness count, first blob's length
+        data = port["data"]
+        bad = data[:head] + _flip(data[head:], word, bit)
+        with pytest.raises(ValueError):
+            bk.Proof.from_bytes(port["params"], bad)
+        assert ref["vrf"].verify(ref["public"], ref_bk.Proof.from_bytes(
+            ref["params"], bad)) is True
+        return
+    rt = _jindo_round_trip()
+    com, pf = rt["com"], rt["pf"]
+    if target == "jindo_proof":
+        pf = _flip(pf, word, bit)
+        with pytest.raises(ValueError):
+            tj.Proof.from_bytes(rt["params"], pf)
+    else:
+        com = _flip(com, word, bit)
+        with pytest.raises(ValueError):
+            tj.Commitment.from_bytes(rt["params"], com)
+    vrf = ref_jindo.Verifier(rt["ref_params"], rt["crs"])
+    assert vrf.verify(
+        rt["x"], [ref_jindo.Commitment.from_bytes(rt["ref_params"], com)],
+        [rt["y"]], ref_jindo.Proof.from_bytes(rt["ref_params"], pf)) is True
 
 
 @pytest.mark.slow
