@@ -47,15 +47,20 @@
    ``sample_device`` call and exit with at most 3 host syncs, or if a COSAC
    or noise-mask sampler copied keystream to the host;
 2b. big-field phase: the big-field kernel (csrc/bigfield.cu: mul_mod,
-   reduce_cols, tree_sum, limb add/sub/neg/geq) against the plain versions
-   on the card, exactly, at all seven field widths with the corner values
-   0, 1, p - 1 and the all-0xFFFF plane, broadcast and sliced operands;
-   then at the cells' shapes (the evaluate's Horner product and tree sum
-   at [16, 1, 2^19], the PublicKey ring's [14, 4, 2^15], reduce_cols at
-   BigLinMap's 2w + 1 columns, a commit's CRT cutoff geq), timed beside
-   the bound, mul_mod at [16, 2^19] beside the plain version too.  The
-   commits, evaluates, verifies and Buckler proves and verifies below
-   fail unless they launched it;
+   reduce_cols, the one-launch tree_sum, horner, powers, limb
+   add/sub/neg/geq) against the plain versions on the card, exactly, at
+   all seven field widths with the corner values 0, 1, p - 1 and the
+   all-0xFFFF plane, broadcast and sliced operands; horner and powers at
+   x = 0, 1, p - 1 and a random point, n = 1, n = 700 (t = 3), a sliced
+   vs, n = 2^15 (several blocks) and t = 43 at ZP240; then at the cells'
+   shapes (the evaluate's horner and the verifier's tree sum at [16, 1,
+   2^19], the PublicKey ring's horner, powers and tree sum at [14, 4,
+   2^15], reduce_cols at BigLinMap's 2w + 1 columns, a commit's CRT cutoff
+   geq), timed beside the bound, mul_mod at [16, 2^19] and horner at [16,
+   1, 2^19] beside the plain version too.  The commits, evaluates,
+   verifies and Buckler proves and verifies below fail unless they
+   launched it, the evaluate also unless it made exactly one big-field
+   call;
 3. commit phase: builds the N = 2^19 prover on the card (CRS expansion
    timed, its launches counted from 0: it fails unless the AES kernel ran),
    commits once to warm up, then with every launch count at 0 drives
@@ -966,6 +971,15 @@ def bigfield_bound(ins, out, lanes: int, ops_per_lane: int):
     return bench.bound_ms(n_bytes, lanes * ops_per_lane)
 
 
+def horner_ops(w: int) -> int:
+    """32-bit operations of one coefficient of Horner's rule: one multiply
+    and add mod p (``bigfield_mul_adds`` multiply-adds, two operations
+    each, and the w digit adds of the addend).  The rule needs one such
+    step a coefficient (no power plane), so this, not a product for the
+    power and another for the coefficient, is the function's work."""
+    return 2 * bigfield_mul_adds(w) + w
+
+
 def digit_planes(spec, shape, gen, corners: bool, wide: bool):
     """Digit planes [w, *shape] on the card, uniform below p; with
     ``corners`` the first lanes of the flattened value axes are 0, 1 and
@@ -993,11 +1007,13 @@ def bigfield_phase(errs: dict):
     on the card, exactly: every entry point at each of the seven field
     widths, with the corner values 0, 1, p - 1 (and the all-0xFFFF plane
     where the plain version takes values >= p: all but the tree sum),
-    broadcast and sliced operands; then at the cells' shapes: the Horner
-    product and tree sum of the Jindo evaluate at [16, 1, 2^19], the
-    PublicKey ring's [14, t, 2^15], ``reduce_cols`` at ``BigLinMap``'s
-    column counts and the CRT cutoff's ``geq`` of a commit.  Times
-    ``mul_mod`` at [16, 2^19] (kernel, plain version, bound) and each
+    broadcast and sliced operands; horner and powers at every kind of
+    point, n = 1, a sliced vs, several blocks and t = 43; then at the
+    cells' shapes: the Jindo evaluate's horner and the verifier's tree sum
+    at [16, 1, 2^19], the PublicKey ring's horner, powers and tree sum at
+    [14, t, 2^15], ``reduce_cols`` at ``BigLinMap``'s column counts and
+    the CRT cutoff's ``geq`` of a commit.  Times ``mul_mod`` at [16, 2^19]
+    and horner at [16, 1, 2^19] (kernel, plain version, bound) and each
     other entry point at a cell's shape beside its bound."""
     import torch
 
@@ -1026,6 +1042,15 @@ def bigfield_phase(errs: dict):
             hold(horner.tree_sum(big, x), horner.tree_sum_plain(big, x),
                  f"tree_sum {what}")
 
+    def hold_horner(plan, vs, pt, what):
+        """HORNER and POWERS against eval_stacked_plain and powers_plain."""
+        n = vs.shape[2]
+        steps = plan.steps_for(pt, n).to("cuda")
+        hold(plan.eval_stacked(vs, steps), plan.eval_stacked_plain(vs, steps),
+             f"horner {what}")
+        hold(plan.powers(pt, n, "cuda"), plan.powers_plain(steps, n),
+             f"powers {what}")
+
     for name in BIGFIELD_FIELDS:
         spec = getattr(fields, name)
         big, w = BigMul(spec), spec.w
@@ -1048,6 +1073,20 @@ def bigfield_phase(errs: dict):
              f"tree_sum {name} m = 1")
         hold(horner.tree_sum(big, P), horner.tree_sum_plain(big, P),
              f"tree_sum {name} [w, m] -> [w]")
+        hold(horner.tree_sum(big, x[..., 1:]), horner.tree_sum_plain(big, x[..., 1:]),
+             f"tree_sum {name} at an odd offset (no pair loads)")
+        # Horner's evaluation and the powers at every point kind; the
+        # digit planes carry 0, 1, p - 1 and the all-0xFFFF plane
+        plan = horner.HornerPlan(spec)
+        vs = digit_planes(spec, (3, 700), gen, True, True)
+        for label, pt in (("0", 0), ("1", 1), ("p-1", spec.p - 1),
+                          ("random", int(torch.randint(1, 1 << 62, (1,),
+                                                       generator=gen)))):
+            hold_horner(plan, vs, pt, f"{name} [w, 3, 700] x = {label}")
+        hold_horner(plan, vs[:, :, :1], 5, f"{name} n = 1")
+        hold_horner(plan, vs[:, 1:, 5:600], 7, f"{name} sliced [w, 2, 595]")
+        hold_horner(plan, digit_planes(spec, (1, 1 << 15), gen, True, False),
+                    11, f"{name} [w, 1, 2^15] (several blocks)")
         # reduce_cols: BigLinMap's 2w + 1 columns (< 2^18), a verifier
         # magnitude's 8 digits, more columns than reach the kept digits,
         # columns up to 2^23 and all 0xFFFF
@@ -1062,7 +1101,11 @@ def bigfield_phase(errs: dict):
             hold(big.reduce_cols(cols[:, :, ::2]), big.reduce_cols_plain(cols[:, :, ::2]),
                  f"reduce_cols {name} m = {m} strided")
         log(f"bigfield {name} (w = {w}): mul_mod, reduce_cols, tree_sum, add, "
-            "sub, neg, geq equal to plain (corner values, broadcast, sliced)")
+            "sub, neg, geq, horner, powers equal to plain (corner values, "
+            "broadcast, sliced)")
+    spec = fields.ZP240
+    hold_horner(horner.HornerPlan(spec), digit_planes(spec, (43, 300), gen, True, True),
+                13, "ZP240 t = 43 [15, 43, 300]")
 
     # the cells' shapes
     passes = []
@@ -1094,18 +1137,20 @@ def bigfield_phase(errs: dict):
                library_ms=None, shape=f"mul_mod [16, 2^{LOG_N}] int64",
                kernel="bigfield", passes=passes)
     log(f"bigfield mul_mod [16, 2^{LOG_N}]: plain version {plain_ms:.3f} ms")
+    # the Jindo evaluate's Horner call: [16, 1, 2^19] at the round trip's
+    # point, and the verifier's tree sum at the same shape
+    plan = horner.HornerPlan(spec)
     vs = x[:, None, :]
-    prod = timed_pass(f"mul_mod Horner [16, 1, 2^{LOG_N}] x [16, 1, 2^{LOG_N}]",
-                      lambda: big.mul_mod(vs, mm[:, None, :]),
-                      lambda: big.mul_mod_plain(vs, mm[:, None, :]),
-                      (vs, mm), n, 2 * bigfield_mul_adds(w))
-    timed_pass(f"tree_sum Horner [16, 1, 2^{LOG_N}]",
-               lambda: horner.tree_sum(big, prod),
-               lambda: horner.tree_sum_plain(big, prod), (prod,), n, 2 * w)
-    timed_pass(f"mul_mod powers step [16, 2^{LOG_N - 1}] x [16, 1]",
-               lambda: big.mul_mod(x[:, :n // 2], y[:, 5:6]),
-               lambda: big.mul_mod_plain(x[:, :n // 2], y[:, 5:6]),
-               (x[:, :n // 2], y[:, 5:6]), n // 2, 2 * bigfield_mul_adds(w))
+    steps = plan.steps_for(X_POINT % spec.p, n).to("cuda")
+    timed_pass(f"horner ZP255 [16, 1, 2^{LOG_N}]",
+               lambda: plan.eval_stacked(vs, steps),
+               lambda: plan.eval_stacked_plain(vs, steps), (vs, steps), n,
+               horner_ops(w))
+    row["horner_plain_ms"] = bench.time_ms(
+        lambda: plan.eval_stacked_plain(vs, steps), reps=3)
+    timed_pass(f"tree_sum [16, 1, 2^{LOG_N}]",
+               lambda: horner.tree_sum(big, vs),
+               lambda: horner.tree_sum_plain(big, vs), (vs,), n, 2 * w)
     q = torch.tensor(big.p_digits, device="cuda").reshape(w, 1)
     for label, fn, plain in (
             ("add", lambda: limb.add(x, y, q), lambda: limb.add_plain(x, y, q)),
@@ -1115,7 +1160,7 @@ def bigfield_phase(errs: dict):
                    if label != "geq" else (x, y), n, 2 * w)
     timed_pass(f"neg ZP255 [16, 2^{LOG_N}]", lambda: limb.neg(x, q),
                lambda: limb.neg_plain(x, q), (x, q), n, 2 * w)
-    del x, y, mm, vs, prod
+    del x, y, mm, vs
     # the PublicKey ring (ZP220, rank 2^15): Horner over t polynomials,
     # the embedding NTT's reduce_cols at BigLinMap's 2w + 1 columns
     spec = fields.ZP220
@@ -1123,13 +1168,24 @@ def bigfield_phase(errs: dict):
     t, nr = 4, 1 << 15
     v = digit_planes(spec, (t, nr), gen, True, False)
     P = digit_planes(spec, (nr,), gen, True, False)
-    prod = timed_pass(f"mul_mod ZP220 [14, {t}, 2^15] x [14, 1, 2^15]",
-                      lambda: big.mul_mod(v, P[:, None, :]),
-                      lambda: big.mul_mod_plain(v, P[:, None, :]),
-                      (v, P), t * nr, 2 * bigfield_mul_adds(w))
+    timed_pass(f"mul_mod ZP220 [14, {t}, 2^15] x [14, 1, 2^15]",
+               lambda: big.mul_mod(v, P[:, None, :]),
+               lambda: big.mul_mod_plain(v, P[:, None, :]),
+               (v, P), t * nr, 2 * bigfield_mul_adds(w))
+    plan = horner.HornerPlan(spec)
+    pt = X_POINT % spec.p
+    steps = plan.steps_for(pt, nr).to("cuda")
+    timed_pass(f"horner ZP220 [14, {t}, 2^15]",
+               lambda: plan.eval_stacked(v, steps),
+               lambda: plan.eval_stacked_plain(v, steps), (v, steps), t * nr,
+               horner_ops(w))
+    timed_pass("powers ZP220 [14, 2^15]",
+               lambda: bigfield.powers_cuda(big, steps, nr),
+               lambda: plan.powers_plain(steps, nr), (steps,), nr,
+               2 * bigfield_mul_adds(w))
     timed_pass(f"tree_sum ZP220 [14, {t}, 2^15]",
-               lambda: horner.tree_sum(big, prod),
-               lambda: horner.tree_sum_plain(big, prod), (prod,), t * nr, 2 * w)
+               lambda: horner.tree_sum(big, v),
+               lambda: horner.tree_sum_plain(big, v), (v,), t * nr, 2 * w)
     cols = torch.randint(0, 1 << 18, (2 * w + 1, 32, 2048), generator=gen,
                          dtype=torch.int64).to("cuda")
     timed_pass(f"reduce_cols ZP220 [{2 * w + 1}, 32, 2048]",
@@ -1144,7 +1200,7 @@ def bigfield_phase(errs: dict):
     timed_pass("geq CRT cutoff [8, 28, 256] x [8, 1, 1]",
                lambda: limb.geq(a, half), lambda: limb.geq_plain(a, half),
                (a, half), 28 * 256, 8)
-    del v, P, prod, cols, a
+    del v, P, cols, a
     torch.cuda.empty_cache()
     if bigfield.WIDTHS != tuple(getattr(fields, f).w for f in BIGFIELD_FIELDS):
         raise AssertionError("bigfield: the phase does not cover every width")
@@ -1293,10 +1349,17 @@ def tampered(jindo, params, pf, field: str):
     return bad
 
 
+def bigfield_calls(calls: dict, reps: int) -> str:
+    """Big-field launches by entry, per call of ``reps``."""
+    return ", ".join(f"{k} {n / reps:g}" for k, n in calls.items() if n)
+
+
 def roundtrip_phase(backend, jindo, params, checked, prv, v, com, op):
     """evaluate -> verify at N = 2^19, t = 1, on the commit phase's prover
     and key; the five tampers."""
     import torch
+
+    from ringo_tpu_torch.fields import bigfield
 
     spec = params.spec
     x = X_POINT % spec.p
@@ -1325,14 +1388,23 @@ def roundtrip_phase(backend, jindo, params, checked, prv, v, com, op):
         if vrf.verify(x, [com], ys, pf) is not True:
             raise AssertionError("verify rejected an honest proof")
     backend.reset_launches()
+    calls0 = dict(bigfield.CALLS)
     ok, vf_times, vf_peak = timed(lambda: vrf.verify(x, [com], ys, pf))
     vf_launches = dict(backend.LAUNCHES)
+    vf_calls = {k: n - calls0[k] for k, n in bigfield.CALLS.items()}
     if ok is not True:
         raise AssertionError("verify rejected an honest proof")
     for name, launched in (("evaluate", ev_launches), ("verify", vf_launches)):
         for k in ("ntt", "bigfield"):
             if launched[k] <= 0:
                 raise AssertionError(f"kernel {k} was not launched in {name}")
+    if ev_launches["bigfield"] != len(ev_times):
+        raise AssertionError(f"evaluate: {ev_launches['bigfield']} big-field "
+                             f"calls in {len(ev_times)} evaluates; Horner's "
+                             "evaluation is one call")
+    log(f"big-field calls per evaluate {ev_launches['bigfield'] / len(ev_times):g}, "
+        f"per verify {vf_launches['bigfield'] / len(vf_times):g} "
+        f"({bigfield_calls(vf_calls, len(vf_times))})")
     ev_med, vf_med = statistics.median(ev_times), statistics.median(vf_times)
     log(f"evaluate N=2^{LOG_N}: times {ev_times} s, median {ev_med:.4f} s, "
         f"peak {ev_peak:.3f} GiB (held before: {held:.3f} GiB), NTT launches "
@@ -1614,6 +1686,7 @@ def buckler_phase(backend, point, checked: set, errs: dict, gen, rng,
     import torch
 
     from ringo_tpu_torch import buckler
+    from ringo_tpu_torch.fields import bigfield
 
     label, name, field, log_n = point
     torch.cuda.empty_cache()
@@ -1678,12 +1751,18 @@ def buckler_phase(backend, point, checked: set, errs: dict, gen, rng,
                ntt_at_buckler_shapes=ntt_rows)
     if timed_reps:
         backend.reset_launches()
+        calls0 = dict(bigfield.CALLS)
         pf, pt, ppeak = timed(lambda: prv.prove(a), reps=timed_reps)
         rec["prove_launches_total"] = dict(backend.LAUNCHES)
+        prove_calls = {k: n - calls0[k] for k, n in bigfield.CALLS.items()}
         prove_launches = {k: n / timed_reps for k, n in backend.LAUNCHES.items()}
         backend.reset_launches()
+        calls0 = dict(bigfield.CALLS)
         ok, vt, vpeak = timed(lambda: vrf.verify(pub, pf), reps=timed_reps)
+        verify_calls = {k: n - calls0[k] for k, n in bigfield.CALLS.items()}
         rec["verify_launches_total"] = dict(backend.LAUNCHES)
+        rec.update(prove_bigfield_calls=prove_calls,
+                   verify_bigfield_calls=verify_calls)
         verify_launches = {k: n / timed_reps for k, n in backend.LAUNCHES.items()}
         if ok is not True:
             raise AssertionError(f"{label}: verify rejected an honest proof")
@@ -1692,6 +1771,10 @@ def buckler_phase(backend, point, checked: set, errs: dict, gen, rng,
                    prove_peak_gib=ppeak, verify_peak_gib=vpeak,
                    prove_launches=prove_launches,
                    verify_launches=verify_launches)
+        log(f"{label}: big-field calls per prove {prove_launches['bigfield']:g} "
+            f"({bigfield_calls(prove_calls, timed_reps)}), per verify "
+            f"{verify_launches['bigfield']:g} "
+            f"({bigfield_calls(verify_calls, timed_reps)})")
         log(f"{label}: prove {pt} s, median {rec['prove_median_s']:.4f} s, "
             f"peak {ppeak:.3f} GiB; verify {vt} s, median "
             f"{rec['verify_median_s']:.4f} s, peak {vpeak:.3f} GiB (held "

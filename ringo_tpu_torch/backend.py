@@ -68,7 +68,7 @@ _SIGNATURES = {
     "ringo_twin_search": "ppppppiip",
     "ringo_aes256_ctr": "ppip",
     "ringo_aes256_ctr_fold": "pippip",
-    "ringo_bigfield": "ippp",
+    "ringo_bigfield": "ippppppppp",
     "ringo_gauss": "ipp",
     "ringo_gauss_loop": "pp",
 }
@@ -149,7 +149,10 @@ def check(err: int, name: str) -> None:
 
 
 def stream_ptr(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The current CUDA stream of ``t``'s device, as the raw pointer the
+    kernels launch on (the same stream ``torch.cuda.current_stream``
+    names, read without building a Stream object)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def require(t: torch.Tensor, dtype: torch.dtype, shape=None,

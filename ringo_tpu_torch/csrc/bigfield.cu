@@ -4,9 +4,11 @@
 // as lax.scans over the digit count inside jit, which XLA fuses into a few
 // device programs: ringo_tpu/ops/bigmul.py BigMul.mul_mod and reduce_cols
 // (schoolbook columns, ripple, Barrett), ringo_tpu/fields/limb.py add,
-// sub, neg and geq, and the tree sum of ringo_tpu/ops/horner.py.  The
-// port's plain versions (ops/bigmul.py, fields/limb.py, ops/horner.py) run
-// them eagerly, one launch per digit step: ~1,200 launches a product.
+// sub, neg and geq, and ringo_tpu/ops/horner.py's evaluation
+// (horner_eval_traced: powers by doubling, products, tree sum) and powers.
+// The port's plain versions (ops/bigmul.py, fields/limb.py,
+// ops/horner.py) run them eagerly, one launch per digit step: ~1,200
+// launches a product.
 //
 // Values are little-endian base-2^16 digit planes [w, ...] in int64 lanes.
 // Every operand is read through its own element strides over up to four
@@ -25,21 +27,32 @@
 // plain version's, so a digit plane outside [0, p) gives the same digits
 // there too.  Templated on w for the seven fields (7, 8, 14, 15, 16, 28,
 // 55): the loops are unrolled and the digits live in registers; at w = 55
-// the column loops stay loops and their digits live in local memory
-// (`-Xptxas -v`: a 672-byte stack frame for mul_mod, 912 for reduce_cols).
-// tree_sum: grid-stride modular sums of canonical values into
-// per-block partials (warp shuffles, then shared memory), a second launch
-// reduces the partials; modular addition of values < p is exact and
-// associative, so the order does not change the digits.  add, sub, neg,
-// geq: one thread per lane, the plain version's carry and borrow chains
-// in int64 over a digit count given at run time, inputs read twice (the
-// first pass decides the selection, the second writes), q read through
-// its pointer.
+// the column loops stay loops and their digits live in local memory.
+// add, sub, neg, geq: one thread per lane, the plain version's carry and
+// borrow chains in int64 over a digit count given at run time, inputs read
+// twice (the first pass decides the selection, the second writes), q read
+// through its pointer.
 //
-// What bounds it on the H100: bytes.  mul_mod at [16, 2^19] reads two
-// int64 planes and writes one (201 MB, 0.060 ms at 3.35 TB/s) against
-// ~2,000 32-bit operations a lane (~0.03 ms at the integer rate); the tree
-// sum of [16, 1, 2^19] reads 67 MB (0.020 ms).
+// tree_sum, horner and powers are one launch each.  tree_sum: grid-stride
+// modular sums into per-block partials (warp shuffles, then shared
+// memory); the last block of a row to finish, by a ticket counter, sums
+// the row's partials and resets the counter.  horner: sum_i v[i] * x^i mod
+// p for t rows at once with one multiply-add mod p a coefficient (Horner's
+// rule in x^S over a lane's coefficients i = g mod S) and the lane weights
+// x^g from three small shared tables, the same last-block finish; no power
+// plane and no product plane goes to device memory (section below).
+// powers: x^0 .. x^(n-1) from the same tables, one product an element.
+// Modular arithmetic on values below p is exact and associative, and
+// barrett<W> reduces any x * y + a < B^(2w), so the digits equal the plain
+// composition's (powers by doubling, products, tree sum) for any order.
+//
+// What bounds it on the H100.  mul_mod at [16, 2^19] reads two int64
+// planes and writes one (201 MB, 0.060 ms at 3.35 TB/s) against ~2,000
+// 32-bit operations a lane (~0.03 ms at the integer rate): bytes.  The
+// tree sum of [16, 1, 2^19] reads 67 MB (0.020 ms): bytes.  horner at
+// [16, 1, 2^19] reads the same 67 MB but does 2^19 multiply-adds mod p of
+// ~750 16-bit multiply-adds each (~0.023 ms at the integer rate), so the
+// arithmetic bounds it, as it does powers.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -54,10 +67,9 @@ constexpr long long kMask = 0xFFFF;
 
 // op codes and header slots: ringo_tpu_torch/fields/bigfield.py
 enum Op { MUL_MOD = 0, REDUCE_COLS = 1, TREE_SUM = 2, ADD = 3, SUB = 4,
-          NEG = 5, GEQ = 6 };
+          NEG = 5, GEQ = 6, HORNER = 7, POWERS = 8 };
 enum Slot { H_W = 0, H_N = 1, H_M = 2, H_MSTRIDE = 3, H_SHAPE = 4,
-            H_OUT = 8, H_SCRATCH = 9, H_PARTS = 10, H_OPS = 11,
-            H_OP_LEN = 6 };
+            H_PARTS = 8, H_AUX = 9, H_OPS = 10, H_OP_LEN = 5 };
 
 struct Operand {
   const long long* ptr;
@@ -67,13 +79,20 @@ struct Operand {
 
 struct Args {
   int w;                 // digits of the operation
-  int m;                 // reduce_cols: columns; tree_sum: summed length
-  unsigned n;            // output lanes
-  int parts;             // tree_sum: partial sums per row
+  long long m;           // reduce_cols: columns; tree_sum: summed length;
+                         // horner, powers: coefficients
+  unsigned n;            // output lanes (horner: rows)
+  int parts;             // tree_sum: partial sums per row; horner, powers:
+                         // blocks per row (a power of two)
   unsigned shape[4];     // value dims, outermost first
-  long long mstride;     // tree_sum: elements per step of the summed axis
+  long long mstride;     // tree_sum, horner: elements per step of the
+                         // summed axis
   long long* out;
-  unsigned* scratch;     // tree_sum: partials [w, n * parts]
+  unsigned* scratch;     // tree_sum: partials [w, n * parts]; horner:
+                         // [n, parts, w]
+  unsigned* count;       // tree_sum, horner: a zeroed ticket counter a row
+  int aux;               // tree_sum: 16-byte pair loads; horner, powers:
+                         // step count logn (op[1]: steps [logn, w])
   Operand op[3];
 };
 
@@ -151,6 +170,75 @@ __device__ __forceinline__ void barrett(const uint32_t (&z)[2 * W + 1],
   }
 }
 
+// r = (x * y + a) mod p (a only where ADD) for x * y + a < B^(2W): the
+// product's 2W column sums (32-bit products in a 64-bit accumulator that
+// ripples one digit a column, a added into the low W columns), then
+// barrett<W>.  r may alias x, y or a: all are read before r is written.
+template <int W, bool ADD>
+__device__ __forceinline__ void mul_add_mod(const uint32_t (&x)[W],
+                                            const uint32_t (&y)[W],
+                                            const uint32_t (&a)[W],
+                                            const Consts& c, uint32_t (&r)[W]) {
+  uint32_t z[2 * W + 1];
+  uint64_t acc = 0;
+#pragma unroll (W > kUnrollW ? 1 : 2 * W)
+  for (int col = 0; col < 2 * W; ++col) {
+    if (ADD && col < W) acc += a[col];
+#pragma unroll
+    for (int k = 0; k < W; ++k) {
+      const int j = col - k;
+      if (j >= 0 && j < W) acc += (uint64_t)x[k] * y[j];
+    }
+    z[col] = (uint32_t)(acc & kMask);
+    acc >>= 16;
+  }
+  z[2 * W] = (uint32_t)(acc & kMask);
+  uint32_t t[W + 2];
+  barrett<W>(z, c, t);
+#pragma unroll
+  for (int j = 0; j < W; ++j) r[j] = t[j];
+}
+
+template <int W>
+__device__ __forceinline__ void mul_mod(const uint32_t (&x)[W],
+                                        const uint32_t (&y)[W],
+                                        const Consts& c, uint32_t (&r)[W]) {
+  mul_add_mod<W, false>(x, y, y, c, r);
+}
+
+// the same products out of line, for the Horner and powers kernels: nvcc
+// 12.8's front end crashed (a segmentation fault) on horner<28> and
+// powers<16> with the unrolled product inlined in their coefficient
+// loops; out of line, each kernel holds one copy of it.  c lies in shared
+// memory, the arrays in local memory.
+template <int W>
+__device__ __noinline__ void mul_mod_far(const uint32_t (&x)[W],
+                                         const uint32_t (&y)[W],
+                                         const Consts& c, uint32_t (&r)[W]) {
+  mul_mod<W>(x, y, c, r);
+}
+
+
+// the W digits at x (digit stride ds)
+template <int W>
+__device__ __forceinline__ void load_coeff(const long long* x, long long ds,
+                                           uint32_t (&v)[W]) {
+#pragma unroll
+  for (int j = 0; j < W; ++j) v[j] = (uint32_t)x[j * ds];
+}
+
+// acc = (acc * u + v) mod p, v's digits read at x (digit stride ds): the
+// Horner step, out of line as mul_mod_far
+template <int W>
+__device__ __noinline__ void horner_step(uint32_t (&acc)[W],
+                                         const uint32_t (&u)[W],
+                                         const long long* x, long long ds,
+                                         const Consts& c) {
+  uint32_t v[W];
+  load_coeff<W>(x, ds, v);
+  mul_add_mod<W, true>(acc, u, v, c, acc);
+}
+
 template <int W>
 __global__ void __launch_bounds__(128)
 mul_mod_kernel(const Args a, const Consts c) {
@@ -164,22 +252,8 @@ mul_mod_kernel(const Args a, const Consts c) {
     x[j] = (uint32_t)a.op[0].ptr[off[0] + j * a.op[0].dstride];
     y[j] = (uint32_t)a.op[1].ptr[off[1] + j * a.op[1].dstride];
   }
-  // z = x * y: 2W column sums rippled to 2W+1 digits
-  uint32_t z[2 * W + 1];
-  uint64_t acc = 0;
-#pragma unroll (W > kUnrollW ? 1 : 2 * W)
-  for (int col = 0; col < 2 * W; ++col) {
-#pragma unroll
-    for (int k = 0; k < W; ++k) {
-      const int j = col - k;
-      if (j >= 0 && j < W) acc += (uint64_t)x[k] * y[j];
-    }
-    z[col] = (uint32_t)(acc & kMask);
-    acc >>= 16;
-  }
-  z[2 * W] = (uint32_t)(acc & kMask);
-  uint32_t r[W + 2];
-  barrett<W>(z, c, r);
+  uint32_t r[W];
+  mul_mod<W>(x, y, c, r);
 #pragma unroll
   for (int j = 0; j < W; ++j) a.out[(long long)j * a.n + i] = r[j];
 }
@@ -290,54 +364,304 @@ __device__ __forceinline__ void block_sum(uint32_t (&acc)[W], const Consts& c) {
 
 constexpr int kSumThreads = 256;
 
-// pass 1: block b of row r sums elements part, part + parts * 256, ... of
-// the row into the partial scratch[:, r * parts + part]
+// Whether this block is the last of ``blocks`` to finish row ``row``: thread
+// 0 publishes the block's partial (written before the call) and takes a
+// ticket; the last block reads every partial and resets the counter for the
+// next launch (finish_row).  No second launch and no host sync.
+__device__ __forceinline__ bool last_of_row(unsigned* count, unsigned row,
+                                            unsigned blocks) {
+  __shared__ bool last;
+  if (threadIdx.x == 0) {
+    __threadfence();
+    last = atomicAdd(count + row, 1u) == blocks - 1;
+    if (last) __threadfence();
+  }
+  __syncthreads();
+  return last;
+}
+
+// the last block's sum of ``parts`` partials [W] at s, s + stride, ... (read
+// through L2: other blocks wrote them) into out[:, row] (n rows)
+template <int W>
+__device__ __forceinline__ void finish_row(const Args& a, const Consts& c,
+                                           const unsigned* s, long long stride,
+                                           long long dstride, unsigned row) {
+  uint32_t acc[W];
+#pragma unroll
+  for (int j = 0; j < W; ++j) acc[j] = 0;
+  for (int e = threadIdx.x; e < a.parts; e += blockDim.x) {
+    uint32_t v[W];
+#pragma unroll
+    for (int j = 0; j < W; ++j) v[j] = __ldcg(s + e * stride + j * dstride);
+    add_mod<W>(acc, v, c);
+  }
+  block_sum<W>(acc, c);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int j = 0; j < W; ++j) a.out[(long long)j * a.n + row] = acc[j];
+    a.count[row] = 0;
+  }
+}
+
+// block b of row r sums elements part, part + parts * 256, ... of the row
+// (with aux, pairs of neighbours in 16-byte loads) into the partial
+// scratch[:, r * parts + part]; the row's last block sums its partials
 template <int W>
 __global__ void __launch_bounds__(kSumThreads)
-tree_sum_partials(const Args a, const Consts c) {
+tree_sum_kernel(const Args a, const Consts c) {
   const unsigned row = blockIdx.x / a.parts;
   const unsigned part = blockIdx.x % a.parts;
   long long off[1];
   lane_offsets<1>(a, row, off);
   const long long* x = a.op[0].ptr + off[0];
   const long long ds = a.op[0].dstride;
+  const long long step = (long long)a.parts * kSumThreads;
   uint32_t acc[W];
 #pragma unroll
   for (int j = 0; j < W; ++j) acc[j] = 0;
-  for (long long e = (long long)part * kSumThreads + threadIdx.x; e < a.m;
-       e += (long long)a.parts * kSumThreads) {
+  long long e = (long long)part * kSumThreads + threadIdx.x;
+  if (a.aux) {
+    for (; 2 * e + 1 < a.m; e += step) {
+      uint32_t v0[W], v1[W];
+#pragma unroll
+      for (int j = 0; j < W; ++j) {
+        const longlong2 d = reinterpret_cast<const longlong2*>(x + j * ds)[e];
+        v0[j] = (uint32_t)d.x;
+        v1[j] = (uint32_t)d.y;
+      }
+      add_mod<W>(acc, v0, c);
+      add_mod<W>(acc, v1, c);
+    }
+    e = 2 * e < a.m ? 2 * e : a.m;   // the odd last element, if this lane's
+  }
+  for (; e < a.m; e += step) {
     uint32_t v[W];
 #pragma unroll
     for (int j = 0; j < W; ++j) v[j] = (uint32_t)x[e * a.mstride + j * ds];
     add_mod<W>(acc, v, c);
   }
   block_sum<W>(acc, c);
+  const long long np = (long long)a.n * a.parts;
   if (threadIdx.x == 0) {
-    const long long np = (long long)a.n * a.parts;
 #pragma unroll
     for (int j = 0; j < W; ++j) a.scratch[j * np + blockIdx.x] = acc[j];
   }
+  if (last_of_row(a.count, row, a.parts))
+    finish_row<W>(a, c, a.scratch + (long long)row * a.parts, 1, np, row);
 }
 
-// pass 2: block r sums row r's partials into out[:, r]
+// ------------------------------------- Horner's evaluation, the powers of x
+//
+// Thread g of a row (g < S = blocks * T, a power of two) owns coefficients
+// g, g + S, g + 2S, ... and runs Horner's rule in u = x^S over them from
+// the top: acc = acc * u + v (one mul_add_mod a coefficient; the first
+// coefficient enters as it is, since barrett<W> takes any x * y + a <
+// B^(2W)).  Its weight x^g = x^lane * x^(32 warp) * x^(bT) comes from three
+// small tables that three warps build by the step digits x^(2^k) while the
+// others start: x^l for l < 32, x^(32m) for m < T/32, the block's base
+// x^(bT) as a product tree over the set bits of b.  acc * x^lane is summed
+// over the warp, times x^(32 warp) over the block, times the base; the
+// row's last block sums the partials.  POWERS: thread g writes x^g (two
+// products from the tables) and steps by u.
+
+#define HORNER_THREADS(W) ((W) > kUnrollW ? 128 : 256)
+
+template <int W, int T>
+struct PowTables {
+  uint32_t lo[32][W];       // x^l
+  uint32_t hi[T / 32][W];   // x^(32m)
+  uint32_t base[W];         // x^(bT)
+  uint32_t u[W];            // x^S
+};
+
+// digits of x^(2^k), or 1 for k >= logn: an exponent with bit k set is at
+// least 2^logn >= n, so only lanes without a coefficient reach those
 template <int W>
-__global__ void __launch_bounds__(kSumThreads)
-tree_sum_rows(const Args a, const Consts c) {
-  const long long np = (long long)a.n * a.parts;
-  const unsigned* s = a.scratch + (long long)blockIdx.x * a.parts;
+__device__ __forceinline__ void load_step(const Args& a, int k,
+                                          uint32_t (&s)[W]) {
+  const Operand& st = a.op[1];
+#pragma unroll
+  for (int j = 0; j < W; ++j)
+    s[j] = k < a.aux ? (uint32_t)st.ptr[k * st.stride[0] + j * st.dstride]
+                     : (uint32_t)(j == 0);
+}
+
+// v = x^e from the bits of e in [b0, b1): one product a set bit
+template <int W>
+__device__ __forceinline__ void pow_bits(const Args& a, const Consts& c,
+                                         unsigned e, int b0, int b1,
+                                         uint32_t (&v)[W]) {
+#pragma unroll
+  for (int j = 0; j < W; ++j) v[j] = j == 0;
+  for (int k = b0; k < b1; ++k) {
+    if ((e >> k) & 1u) {
+      uint32_t s[W];
+      load_step<W>(a, k, s);
+      mul_mod_far<W>(v, s, c, v);
+    }
+  }
+}
+
+template <int W>
+__device__ __forceinline__ void store_digits(uint32_t (&d)[W],
+                                             const uint32_t (&v)[W]) {
+#pragma unroll
+  for (int j = 0; j < W; ++j) d[j] = v[j];
+}
+
+template <int W>
+__device__ __forceinline__ void load_digits(uint32_t (&v)[W],
+                                            const uint32_t (&d)[W]) {
+#pragma unroll
+  for (int j = 0; j < W; ++j) v[j] = d[j];
+}
+
+// the field's constants into shared memory (for the out-of-line products)
+// and u = x^S into the tables; visible on return
+template <int W, int T>
+__device__ __forceinline__ void prologue(const Args& a, const Consts& c,
+                                         Consts& sc, int k,
+                                         PowTables<W, T>& tb) {
+  constexpr int kWords = sizeof(Consts) / sizeof(uint32_t);
+  for (int i = threadIdx.x; i < kWords; i += blockDim.x)
+    reinterpret_cast<uint32_t*>(&sc)[i] = reinterpret_cast<const uint32_t*>(&c)[i];
+  if (threadIdx.x == 0) load_step<W>(a, k, tb.u);
+  __syncthreads();
+}
+
+// the tables of block b (log2 T = lt, log2 blocks = lg), built by warps 0-2;
+// visible after the caller's next __syncthreads
+template <int W, int T>
+__device__ __forceinline__ void build_tables(const Args& a, const Consts& c,
+                                             unsigned b, int lt, int lg,
+                                             PowTables<W, T>& tb) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  uint32_t v[W];
+  if (warp == 0) {
+    pow_bits<W>(a, c, lane, 0, 5, v);
+    store_digits<W>(tb.lo[lane], v);
+  } else if (warp == 1) {
+    // lane j holds x^(2^(lt + j)) where bit j of b is set, else 1; a
+    // product tree leaves x^(bT) in lane 0
+    if (lane < lg && ((b >> lane) & 1u)) {
+      load_step<W>(a, lt + lane, v);
+    } else {
+#pragma unroll
+      for (int j = 0; j < W; ++j) v[j] = j == 0;
+    }
+    for (int sh = 1; sh < lg; sh <<= 1) {
+      uint32_t o[W];
+#pragma unroll
+      for (int j = 0; j < W; ++j)
+        o[j] = __shfl_sync(0xFFFFFFFFu, v[j], (lane + sh) & 31);
+      if ((lane & (2 * sh - 1)) == 0 && lane + sh < lg) mul_mod_far<W>(v, o, c, v);
+    }
+    if (lane == 0) store_digits<W>(tb.base, v);
+  } else if (warp == 2 && lane < T / 32) {
+    pow_bits<W>(a, c, 32u * lane, 5, lt, v);
+    store_digits<W>(tb.hi[lane], v);
+  }
+}
+
+template <int W>
+__global__ void __launch_bounds__(HORNER_THREADS(W), W <= 16 ? 2 : 1)
+horner_kernel(const Args a, const Consts c) {
+  constexpr int T = HORNER_THREADS(W);
+  __shared__ PowTables<W, T> tb;
+  __shared__ uint32_t warp_part[T / 32][W];
+  __shared__ Consts sc;
+  const unsigned b = blockIdx.x, row = blockIdx.y;
+  const int lt = 31 - __clz(T), lg = 31 - __clz(gridDim.x);
+  const long long S = (long long)gridDim.x * T, g = (long long)b * T + threadIdx.x;
+  prologue<W, T>(a, c, sc, lt + lg, tb);
+  build_tables<W, T>(a, sc, b, lt, lg, tb);
+
+  long long off[1];
+  lane_offsets<1>(a, row, off);
+  const long long* x = a.op[0].ptr + off[0];
+  const long long ds = a.op[0].dstride, ms = a.mstride;
   uint32_t acc[W];
 #pragma unroll
   for (int j = 0; j < W; ++j) acc[j] = 0;
-  for (int e = threadIdx.x; e < a.parts; e += kSumThreads) {
-    uint32_t v[W];
-#pragma unroll
-    for (int j = 0; j < W; ++j) v[j] = s[j * np + e];
-    add_mod<W>(acc, v, c);
+  if (g < a.m) {
+    long long k = (a.m - 1 - g) / S;          // this lane's top coefficient
+    load_coeff<W>(x + (g + k * S) * ms, ds, acc);
+    for (--k; k >= 0; --k) horner_step<W>(acc, tb.u, x + (g + k * S) * ms, ds, sc);
   }
-  block_sum<W>(acc, c);
-  if (threadIdx.x == 0) {
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  {
+    uint32_t l[W];
+    load_digits<W>(l, tb.lo[lane]);
+    mul_mod_far<W>(acc, l, sc, acc);
+  }
+  // the warp's sum (block_sum's first stage); warp 0 multiplies warp m's
+  // by x^(32m) in lane m and sums those
 #pragma unroll
-    for (int j = 0; j < W; ++j) a.out[(long long)j * a.n + blockIdx.x] = acc[j];
+  for (int sh = 16; sh > 0; sh >>= 1) {
+    uint32_t o[W];
+#pragma unroll
+    for (int j = 0; j < W; ++j) o[j] = __shfl_down_sync(0xFFFFFFFFu, acc[j], sh);
+    add_mod<W>(acc, o, c);
+  }
+  if (lane == 0) store_digits<W>(warp_part[warp], acc);
+  __syncthreads();
+  const long long np = (long long)gridDim.x;
+  unsigned* part = a.scratch + ((long long)row * np) * W;
+  if (warp == 0) {
+#pragma unroll
+    for (int j = 0; j < W; ++j) acc[j] = 0;
+    if (lane < T / 32) {
+      uint32_t h[W];
+      load_digits<W>(acc, warp_part[lane]);
+      load_digits<W>(h, tb.hi[lane]);
+      mul_mod_far<W>(acc, h, sc, acc);
+    }
+#pragma unroll
+    for (int sh = 16; sh > 0; sh >>= 1) {
+      uint32_t o[W];
+#pragma unroll
+      for (int j = 0; j < W; ++j) o[j] = __shfl_down_sync(0xFFFFFFFFu, acc[j], sh);
+      add_mod<W>(acc, o, c);
+    }
+    if (lane == 0) {
+      uint32_t bs[W];
+      load_digits<W>(bs, tb.base);
+      mul_mod_far<W>(acc, bs, sc, acc);
+#pragma unroll
+      for (int j = 0; j < W; ++j) part[b * W + j] = acc[j];
+    }
+  }
+  if (last_of_row(a.count, row, gridDim.x))
+    finish_row<W>(a, c, part, W, 1, row);
+}
+
+template <int W>
+__global__ void __launch_bounds__(HORNER_THREADS(W), W <= 16 ? 2 : 1)
+powers_kernel(const Args a, const Consts c) {
+  constexpr int T = HORNER_THREADS(W);
+  __shared__ PowTables<W, T> tb;
+  __shared__ Consts sc;
+  const unsigned b = blockIdx.x;
+  const int lt = 31 - __clz(T), lg = 31 - __clz(gridDim.x);
+  const long long S = (long long)gridDim.x * T, g = (long long)b * T + threadIdx.x;
+  prologue<W, T>(a, c, sc, lt + lg, tb);
+  build_tables<W, T>(a, sc, b, lt, lg, tb);
+  __syncthreads();
+  if (g >= a.m) return;
+  // v = x^g = x^lane * x^(32 warp) * x^(bT)
+  uint32_t v[W], l[W], h[W];
+  load_digits<W>(l, tb.lo[threadIdx.x & 31]);
+  load_digits<W>(h, tb.hi[threadIdx.x >> 5]);
+  mul_mod_far<W>(l, h, sc, v);
+  load_digits<W>(h, tb.base);
+  mul_mod_far<W>(v, h, sc, v);
+  for (long long i = g;;) {
+#pragma unroll
+    for (int j = 0; j < W; ++j) a.out[(long long)j * a.m + i] = v[j];
+    i += S;
+    if (i >= a.m) break;
+    mul_mod_far<W>(v, tb.u, sc, v);
   }
 }
 
@@ -416,40 +740,49 @@ int launch(int op, const Args& a, const Consts& c, cudaStream_t st) {
     mul_mod_kernel<W><<<grid, 128, 0, st>>>(a, c);
   } else if (op == REDUCE_COLS) {
     reduce_cols_kernel<W><<<grid, 128, 0, st>>>(a, c);
+  } else if (op == TREE_SUM) {
+    tree_sum_kernel<W><<<a.n * a.parts, kSumThreads, 0, st>>>(a, c);
+  } else if (op == HORNER) {
+    horner_kernel<W><<<dim3(a.parts, a.n), HORNER_THREADS(W), 0, st>>>(a, c);
   } else {
-    tree_sum_partials<W><<<a.n * a.parts, kSumThreads, 0, st>>>(a, c);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    tree_sum_rows<W><<<a.n, kSumThreads, 0, st>>>(a, c);
+    powers_kernel<W><<<a.parts, HORNER_THREADS(W), 0, st>>>(a, c);
   }
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// op: the Op above; hdr: host int64 header (the Slot layout above);
-// consts: host int64 [3w + 4], p's digits (w + 2), mu's (w + 2) and
-// B^(2w-1) mod p's (w), or NULL for the limb ops.  Returns the CUDA error
-// of the launch (0 = success).
+// op: the Op above; hdr: host int64 header (the Slot layout above: per
+// operand its digit stride and strides[4]); consts: host int64 [3w + 4], p's digits
+// (w + 2), mu's (w + 2) and B^(2w-1) mod p's (w), or NULL for the limb
+// ops; out, the three operands' pointers, scratch and count: device
+// pointers (NULL where the op has none).  Returns the CUDA error of the
+// launch (0 = success).
 extern "C" int ringo_bigfield(int op, const long long* hdr,
-                              const long long* consts, void* stream) {
+                              const long long* consts, void* out,
+                              const void* op0, const void* op1,
+                              const void* op2, void* scratch, void* count,
+                              void* stream) {
   Args a;
   a.w = (int)hdr[H_W];
   a.n = (unsigned)hdr[H_N];
-  a.m = (int)hdr[H_M];
+  a.m = hdr[H_M];
   a.mstride = hdr[H_MSTRIDE];
   for (int k = 0; k < 4; ++k) {
     a.shape[k] = (unsigned)hdr[H_SHAPE + k];
     if (a.shape[k] == 0) return (int)cudaErrorInvalidValue;
   }
-  a.out = (long long*)hdr[H_OUT];
-  a.scratch = (unsigned*)hdr[H_SCRATCH];
+  a.out = (long long*)out;
+  a.scratch = (unsigned*)scratch;
+  a.count = (unsigned*)count;
   a.parts = (int)hdr[H_PARTS];
+  a.aux = (int)hdr[H_AUX];
+  const void* ptrs[3] = {op0, op1, op2};
   for (int k = 0; k < 3; ++k) {
     const long long* o = hdr + H_OPS + H_OP_LEN * k;
-    a.op[k].ptr = (const long long*)o[0];
-    a.op[k].dstride = o[1];
-    for (int d = 0; d < 4; ++d) a.op[k].stride[d] = o[2 + d];
+    a.op[k].ptr = (const long long*)ptrs[k];
+    a.op[k].dstride = o[0];
+    for (int d = 0; d < 4; ++d) a.op[k].stride[d] = o[1 + d];
   }
   if (a.n == 0 || a.w <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
@@ -457,8 +790,14 @@ extern "C" int ringo_bigfield(int op, const long long* hdr,
     limb_kernel<<<(a.n + 255) / 256, 256, 0, st>>>(a, op);
     return (int)cudaGetLastError();
   }
-  if (op < MUL_MOD || op > TREE_SUM || consts == nullptr || a.w > kMaxW ||
-      (op == TREE_SUM && (a.parts <= 0 || a.m <= 0)))
+  const bool pow2_parts = a.parts > 0 && (a.parts & (a.parts - 1)) == 0;
+  if (op < MUL_MOD || op > POWERS || consts == nullptr || a.w > kMaxW ||
+      (op == TREE_SUM && (a.parts <= 0 || a.m <= 0 || a.scratch == nullptr ||
+                          a.count == nullptr)) ||
+      (op == HORNER && (!pow2_parts || a.m <= 0 || a.aux <= 0 ||
+                        a.n > 65535 || a.scratch == nullptr ||
+                        a.count == nullptr)) ||
+      (op == POWERS && (!pow2_parts || a.m <= 0 || a.aux <= 0)))
     return (int)cudaErrorInvalidValue;
   Consts c = {};
   for (int j = 0; j < a.w + 2; ++j) {

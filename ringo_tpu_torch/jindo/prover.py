@@ -500,10 +500,10 @@ class Prover:
 
     def _evaluations(self, x: int, vs: list) -> list[int]:
         """y_i = v_i(x) on the device (reference prover.go:318-323), as
-        many polynomials at a time as fit: the Barrett products keep
-        about 150 int64 digit planes per coefficient alive."""
+        many polynomials at a time as fit: one launch of the Horner kernel
+        over the stacked int64 digit planes, w a coefficient."""
         n = max(v.shape[1] for v in vs)
-        c = self._fit(len(vs), 150 * 8 * n)
+        c = self._fit(len(vs), 8 * self.spec.w * n)
         out = []
         for s in range(0, len(vs), c):
             out.extend(self.horner.evaluate_many(vs[s:s + c], x, self.device))

@@ -98,6 +98,7 @@ class BigMul:
         self.bs_digits = _digits(pow(B, 2 * w - 1, spec.p), w)
         self.consts = bigfield.consts(self.p_ext, self.mu_digits,
                                       self.bs_digits)
+        self.consts_addr = self.consts.ctypes.data
 
     def mul_mod(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         """(x * y) mod p for plain digit planes [w, ...]: one launch of

@@ -345,8 +345,11 @@ def _k_block_sum(vals, p):
     return warp(sums + [zero] * (32 - len(sums)))
 
 
-def _k_tree_sum(big, row):
-    """tree_sum_partials then tree_sum_rows on one row of digit lists."""
+def _k_tree_sum(big, row, pairs):
+    """tree_sum_kernel on one row of digit lists: each block's partial
+    (with ``pairs``, lane e of the grid-stride loop adds elements 2e and
+    2e + 1, and the lane whose pair index reaches (m - 1) / 2 the odd last
+    element), then the last block's sum of the partials."""
     p = _k_consts(big)[0][:big.w]
     T, m = bigfield.SUM_THREADS, len(row)
     parts = bigfield.sum_parts(1, m)
@@ -355,7 +358,14 @@ def _k_tree_sum(big, row):
     for part in range(parts):
         acc = [zero] * T
         for tid in range(T):
-            for e in range(part * T + tid, m, parts * T):
+            e = part * T + tid
+            if pairs:
+                while 2 * e + 1 < m:
+                    acc[tid] = _k_add_mod(acc[tid], row[2 * e], p)
+                    acc[tid] = _k_add_mod(acc[tid], row[2 * e + 1], p)
+                    e += parts * T
+                e = min(2 * e, m)
+            for e in range(e, m, parts * T):
                 acc[tid] = _k_add_mod(acc[tid], row[e], p)
         partials.append(_k_block_sum(acc, p))
     acc = [zero] * T
@@ -366,16 +376,19 @@ def _k_tree_sum(big, row):
 
 
 @pytest.mark.parametrize("name,m", [("zp110", 1), ("zp110", 2600),
-                                    ("zp255", 700), ("zp880", 40)])
+                                    ("zp255", 700), ("zp880", 40),
+                                    ("zp255", 2051)])
 def test_kernel_steps_tree_sum(name, m):
-    """The kernel's order of modular additions gives the plain version's
-    digits for canonical values (0 and p-1 among them)."""
+    """The kernel's order of modular additions, with pair loads and one by
+    one, gives the plain version's digits for canonical values (0 and p-1
+    among them)."""
     spec = FIELDS[name]
     big = BigMul(spec)
     vals = _values(spec, max(m - 3, 0), m)[-m:]
     x = _planes(spec, vals)
     want = horner.tree_sum_plain(big, x[:, None, :])[:, 0]
-    assert _k_tree_sum(big, _lanes(x)) == want.tolist()
+    for pairs in (True, False):
+        assert _k_tree_sum(big, _lanes(x), pairs) == want.tolist()
     assert limb.digits_to_ints(want[:, None]) == [sum(vals) % spec.p]
 
 
