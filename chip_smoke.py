@@ -46,6 +46,18 @@
    launched it, the commit also unless it launched it once per
    ``sample_device`` call and exit with at most 3 host syncs, or if a COSAC
    or noise-mask sampler copied keystream to the host;
+2a'''. field-sample phase: the uniform draw kernel (csrc/field_sample.cu,
+   one launch a ``draw_segments`` call, fed by the fold) at the N = 2^19
+   commit's segments (last row, mask column, two ChaCha20 keys), a
+   PublicKey (13, ZP220) commitment's and a three-commit batch's, 40
+   one-lane segments (Buckler's blinds), ZP880 (w = 55) and 16 KiB
+   read-aheads (resumes): digits, bytes and the sampler's state equal to
+   ``field_sample_plain`` on the card and to the numpy host loop, the same
+   launches, exits, rounds, chunks and bytes as the plain version, one
+   sync a launch; timed beside its plain version, its bound and per round.
+   The commits fail unless each made exactly one launch and one sync of
+   it (a ``commit_many`` of two one call), and the commits and Buckler
+   proves if their uniform samplers copied keystream to the host;
 2b. big-field phase: the big-field kernel (csrc/bigfield.cu: mul_mod,
    reduce_cols, the one-launch tree_sum, horner, powers, limb
    add/sub/neg/geq) against the plain versions on the card, exactly, at
@@ -947,6 +959,216 @@ def gauss_launches() -> int:
     return backend.LAUNCHES["gauss"]
 
 
+# -------------------------------------------------------- field-sample phase
+
+def commit_segments(params, ns):
+    """The uniform segments of a commit batch of polynomials of ``ns``
+    values (jindo/prover.py ``_meta``): per commitment its last row, its
+    mask column (the rows Prover._mask_rows keeps, slots values each) and
+    the two ChaCha20 keys."""
+    p = params
+    cs = p.cols * p.slots
+    segs = []
+    for n in ns:
+        rows = 2 + int(np.count_nonzero(np.arange(1, p.rows - 1) * cs <= n))
+        segs += [("field", cs - 1), ("field", rows * p.slots), ("bytes", 32),
+                 ("bytes", 32)]
+    return segs
+
+
+def host_segments(spec, u, segments):
+    """The numpy host loop on the port's sampler ``u`` (the JAX package's
+    sample_field_digits, ringo_tpu/jindo/prover.py:28-45, then
+    ``_take_bytes`` for raw bytes): per segment int64 planes [w, n] or
+    uint8 bytes."""
+    w = spec.w
+    top = (1 << (spec.bits - 16 * (w - 1))) - 1
+    pd = spec.p_digits.astype(np.int64)
+    out = []
+    for kind, n in segments:
+        if kind == "bytes":
+            out.append(u._take_bytes(n).copy())
+            continue
+        res = np.zeros((w, n), dtype=np.int64)
+        need = np.arange(n)
+        while len(need):
+            cand = u._take_bytes(2 * w * len(need)).view("<u2").reshape(
+                len(need), w).T.astype(np.int64)
+            cand[-1] &= top
+            lt = np.zeros(len(need), dtype=bool)
+            decided = np.zeros(len(need), dtype=bool)
+            for i in range(w - 1, -1, -1):   # cand < p, from the top digit
+                lt |= ~decided & (cand[i] < pd[i])
+                decided |= cand[i] != pd[i]
+            res[:, need[lt]] = cand[:, lt]
+            need = need[~lt]
+        out.append(res)
+    return out
+
+
+FIELD_LAST_KEYS = ("launches", "exits", "rounds", "chunks", "used",
+                   "read_ahead")
+
+
+def field_bound(spec, segments, used: int):
+    """Least time of one draw: the stream bytes it commits read once and
+    its outputs (8 bytes a digit, the raw bytes) written once, or one
+    integer operation a digit of every candidate, whichever is larger."""
+    out = sum(8 * spec.w * n if kind == "field" else n for kind, n in segments)
+    return bench.bound_ms(used + out, used // 2)
+
+
+def field_phase(jindo, params, params_pk, errs: dict):
+    """The field-sampling kernel (csrc/field_sample.cu, one launch a
+    ``draw_segments`` call): at the N = 2^19 commit's segments (last row,
+    mask column, two keys), a PublicKey (13, ZP220) commitment's and a
+    three-commit batch's, 40 one-lane segments (Buckler's blinds), ZP880
+    (w = 55) and the commit's segments through 16 KiB read-aheads (resumes),
+    each drawn on the card by the kernel, by its plain version on the card
+    (``field_sample_plain``) and by the numpy host loop on the CPU from the
+    same seed: every digit and byte equal, the three samplers' states
+    equal, the same launches, exits, rounds, chunks and bytes in kernel and
+    plain version, and one sync a launch.  Times the kernel (CUDA events,
+    relaunched from the call's first state on the same read-ahead) at the
+    commit's, a PublicKey commitment's, the batch's and the blinds'
+    segments beside its plain version and its bound."""
+    import torch
+
+    from ringo_tpu_torch import backend
+    from ringo_tpu_torch.csprng import field_sample
+    from ringo_tpu_torch.csprng.uniform import UniformSampler
+    from ringo_tpu_torch.fields import ZP220, ZP880
+
+    errs["field"] = 0
+    pk_rank = params_pk.rank
+    cases = [
+        (f"Jindo commit N=2^{LOG_N}", params.spec,
+         commit_segments(params, [params.rank]), None),
+        ("PublicKey (13, ZP220) commitment", ZP220,
+         commit_segments(params_pk, [pk_rank]), None),
+        ("PublicKey three-commit batch", ZP220,
+         commit_segments(params_pk, [pk_rank, pk_rank // 2, 1000]), None),
+        ("blinds (40 one-lane segments)", ZP220, [("field", 1)] * 40, None),
+        ("ZP880", ZP880, [("field", 1), ("field", 2080), ("bytes", 32),
+                          ("field", 127)], None),
+        ("Jindo commit, 16 KiB read-aheads", params.spec,
+         commit_segments(params, [params.rank]), 1 << 14),
+    ]
+    slack, window = field_sample.SLACK, field_sample.WINDOW_SLACK
+    run, draws, resumes = field_sample.field_sample, [], 0
+    try:
+        for label, spec, segs, ahead in cases:
+            if ahead is None:
+                field_sample.SLACK, field_sample.WINDOW_SLACK = slack, window
+            else:   # every read-ahead of that size
+                field_sample.SLACK, field_sample.WINDOW_SLACK = 0.0, ahead
+            seed = b"field " + label.encode()
+            la0, sy0 = backend.LAUNCHES["field"], field_sample.SYNCS
+            k_smp = UniformSampler(seed, device="cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = field_sample.draw_segments(spec, k_smp, segs)
+            torch.cuda.synchronize()
+            card_ms = (time.perf_counter() - t0) * 1e3
+            k_last = dict(field_sample.LAST)
+            launches = backend.LAUNCHES["field"] - la0
+            syncs = field_sample.SYNCS - sy0
+            p_smp = UniformSampler(seed, device="cuda")
+            field_sample.field_sample = field_sample.field_sample_plain
+            try:
+                plain = field_sample.draw_segments(spec, p_smp, segs)
+            finally:
+                field_sample.field_sample = run
+            p_last = dict(field_sample.LAST)
+            h_smp = UniformSampler(seed, device="cpu")
+            want = host_segments(spec, h_smp, segs)
+            what = f"field sample {label}"
+            for k, (g, pl, h) in enumerate(zip(got, plain, want)):
+                errs["field"] = max(errs["field"], max_abs_err(
+                    g, pl, f"{what}, segment {k}"))
+                errs["field"] = max(errs["field"], max_abs_err(
+                    g, torch.from_numpy(h).to("cuda"), f"{what}, segment {k} "
+                    "(numpy)"))
+            same_streams([k_smp], [p_smp], what)
+            same_streams([k_smp], [h_smp], what + " (numpy)")
+            for key in FIELD_LAST_KEYS:
+                if k_last[key] != p_last[key]:
+                    raise AssertionError(f"{what}: {key} {k_last[key]} != "
+                                         f"{p_last[key]} of the plain version")
+            if launches != k_last["launches"] or syncs != launches:
+                raise AssertionError(f"{what}: {launches} launches, {syncs} syncs")
+            if ahead is None and launches != 1:
+                raise AssertionError(f"{what}: {launches} launches, not one")
+            resumes += k_last["exits"]
+            lanes = sum(n for kind, n in segs if kind == "field")
+            draws.append(dict(label=label, w=spec.w, segments=len(segs),
+                              lanes=lanes, card_ms=card_ms, syncs=syncs,
+                              **{k: k_last[k] for k in FIELD_LAST_KEYS}))
+            log(f"{what} ({len(segs)} segments, {lanes} lanes, w={spec.w}): "
+                f"equal to field_sample_plain on the card and to the numpy "
+                f"host loop, samplers too; call {card_ms:.2f} ms on the host "
+                f"clock, {launches} launches ({k_last['exits']} exits), "
+                f"{syncs} syncs, {k_last['rounds']} rounds, "
+                f"{k_last['chunks']} chunks, bytes used / read ahead "
+                f"{k_last['used']} / {k_last['read_ahead']}")
+    finally:
+        field_sample.SLACK, field_sample.WINDOW_SLACK = slack, window
+    if not resumes:
+        raise AssertionError("field sample: no read-ahead-short resume driven")
+    timings = []
+    for label, spec, segs, ahead in cases[:4]:
+        ms, plain_ms, used, rounds = time_field(field_sample, label, spec, segs)
+        b, by = field_bound(spec, segs, used)
+        timings.append(dict(label=label, ms=ms, plain_ms=plain_ms, used=used,
+                            rounds=rounds, bound_ms=b, bound_by=by))
+        log(f"field sample kernel, {label}: {ms:.4f} ms a call, {rounds} "
+            f"rounds ({1e3 * ms / rounds:.2f} us a round), bound "
+            f"{1e3 * b:.3f} us ({by}: {used} stream bytes and the outputs), "
+            f"share {b / ms:.5f}; field_sample_plain on the card "
+            f"{plain_ms:.3f} ms")
+    t = timings[0]
+    return dict(name="field_sample", route="cuda",
+                source="ringo_tpu_torch/csrc/field_sample.cu",
+                replaces="ringo_tpu/jindo/prover.py:28",
+                ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                bound_by=t["bound_by"], library_ms=None, timings=timings,
+                draws=draws, shape=f"a commit's draws, {cases[0][0]}",
+                kernel="field")
+
+
+def time_field(field_sample, label: str, spec, segs):
+    """(kernel ms, plain version ms, stream bytes used, rounds) of one
+    draw, each relaunched from the call's first state on the same
+    read-ahead (CUDA events)."""
+    import torch
+
+    from ringo_tpu_torch.csprng.uniform import UniformSampler
+
+    D = field_sample._Draw(spec, UniformSampler(
+        b"field timing " + label.encode(), device="cuda"), segs)
+    D.open(D.budget())
+    st0 = D.st.copy()
+
+    def run(fn):
+        D.st[:] = st0
+        fn(D)
+
+    ms = bench.time_ms(lambda: run(field_sample.field_sample_cuda))
+    torch.cuda.synchronize()
+    st = D.st_pin.numpy().copy()
+    if st[field_sample.S_STATUS] != field_sample.DONE:
+        raise AssertionError(f"field sample {label}: the timed call exited")
+    out, raw = D.out.clone(), D.raw.clone()
+    plain_ms = bench.time_ms(lambda: run(field_sample.field_sample_plain),
+                             reps=1)
+    if not np.array_equal(D.st, st):
+        raise AssertionError(f"field sample {label}: timed states differ")
+    max_abs_err(out, D.out, f"field sample {label} (timed)")
+    max_abs_err(raw, D.raw, f"field sample {label} (timed bytes)")
+    return ms, plain_ms, int(st[field_sample.S_OFF]), int(
+        st[field_sample.S_ROUNDS])
+
+
 # ----------------------------------------------------------- big-field phase
 
 BIGFIELD_FIELDS = ("ZP110", "ZP128", "ZP220", "ZP240", "ZP255", "ZP440", "ZP880")
@@ -1294,8 +1516,11 @@ def commit_phase(backend, jindo, params, checked):
     held_before = torch.cuda.memory_allocated() / 2 ** 30
     from ringo_tpu_torch.csprng import gaussian
 
+    from ringo_tpu_torch.csprng import field_sample
+
     backend.reset_launches()
     syncs0, calls0, exits0 = gaussian.SYNCS, gaussian.CALLS, gaussian.EXITS
+    f_syncs0 = field_sample.SYNCS
     (com, op), times, peak = timed(lambda: prv.commit(v))
     syncs = (gaussian.SYNCS - syncs0) / 3
     calls = (gaussian.CALLS - calls0) / 3
@@ -1305,18 +1530,31 @@ def commit_phase(backend, jindo, params, checked):
         raise AssertionError(
             f"the Gaussian loop: {gauss_per_commit:g} launches and {syncs:g} "
             f"syncs a commit for {calls:g} calls and {exits:g} exits")
+    field_per_commit = backend.LAUNCHES["field"] / 3
+    field_syncs = (field_sample.SYNCS - f_syncs0) / 3
+    if field_per_commit != 1 or field_syncs != 1:
+        raise AssertionError(
+            f"the uniform draws: {field_per_commit:g} field_sample launches "
+            f"and {field_syncs:g} syncs a commit, not 1 and 1")
+    f_calls0 = field_sample.CALLS
     many, _, peak_many = timed(lambda: prv.commit_many([v, v2]), reps=1)
     launches = dict(backend.LAUNCHES)
-    # the COSAC and noise-mask samplers drew everything on the card: none
-    # of them ever filled its host read-ahead window
-    for name, smp in (("cosac", prv.ecd.cosac.base),
+    if field_sample.CALLS - f_calls0 != 1:
+        raise AssertionError("commit_many of two: its uniform draws took "
+                             f"{field_sample.CALLS - f_calls0} calls, not one")
+    # the uniform, COSAC and noise-mask samplers drew everything on the
+    # card: none of them ever filled its host read-ahead window
+    for name, smp in (("uniform", prv.uniform), ("cosac", prv.ecd.cosac.base),
                       ("cosac rounded", prv.ecd.cosac.rounded.base),
                       ("noise mask", prv.rounded.base)):
         if smp._w1 != 0:
             raise AssertionError(f"the {name} sampler copied keystream to the host")
-    log(f"COSAC path: no keystream copied to the host; per commit "
+    log(f"uniform and COSAC paths: no keystream copied to the host; per "
+        f"commit {field_per_commit:g} field_sample launches and "
+        f"{field_syncs:g} host syncs of the uniform draws, "
         f"{gauss_per_commit:g} gauss launches ({calls:g} sample_device calls, "
-        f"{exits:g} exits) and {syncs:g} host syncs of the Gaussian loop")
+        f"{exits:g} exits) and {syncs:g} host syncs of the Gaussian loop; "
+        f"commit_many of two: one field_sample call")
     for c, o in [(com, op)] + many:
         check_commitment(params, c, o)
     med = statistics.median(times)
@@ -1335,6 +1573,8 @@ def commit_phase(backend, jindo, params, checked):
                gauss_syncs_per_commit=syncs,
                gauss_launches_per_commit=gauss_per_commit,
                gauss_calls_per_commit=calls, gauss_exits_per_commit=exits,
+               field_launches_per_commit=field_per_commit,
+               field_syncs_per_commit=field_syncs,
                peak_mem_many_gib=peak_many, held_before_gib=held_before)
     return rec, (prv, v, com, op)
 
@@ -1721,6 +1961,12 @@ def buckler_phase(backend, point, checked: set, errs: dict, gen, rng,
         first_prove_s = time.perf_counter() - t0
     first_prove_launches = dict(backend.LAUNCHES)
     first_prove_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # the blinds, masks and commitments' rows and keys were drawn on the card
+    for name, smp in (("Buckler uniform", prv.uniform),
+                      ("Jindo uniform", prv.jindo.uniform)):
+        if smp._w1 != 0:
+            raise AssertionError(f"{label}: the {name} sampler copied "
+                                 "keystream to the host")
     torch.cuda.reset_peak_memory_stats()
     backend.reset_launches()
     with ntt_shapes_held(checked, f"{label} first verify"):
@@ -1909,11 +2155,11 @@ def bigfield_card_vs_cpu(b):
     plans_s = time.perf_counter() - t0
     v = b["assignment"].sk_ntt
     blind = sample_field_digits(spec, 1, UniformSampler(b"blind", device="cuda"))[:, 0]
-    e_c = FPoly(prv.ecd.rand_encode_planes(v, blind.to("cuda")))
+    e_c = FPoly(prv.ecd.rand_encode_planes(v, blind))
     f_c = prv.poly_ring.ntt(e_c)
     back = prv.poly_ring.intt(f_c)
     t0 = time.perf_counter()
-    e_h = FPoly(ecd_h.rand_encode_planes(v.cpu(), blind))
+    e_h = FPoly(ecd_h.rand_encode_planes(v.cpu(), blind.cpu()))
     f_h = ring_h.ntt(e_h)
     cpu_s = time.perf_counter() - t0
     for x, y, what in ((e_c.coeffs, e_h.coeffs, "encode"),
@@ -2175,8 +2421,11 @@ def main() -> int:
     rows.append(aes_phase(params, errs))
     phase("AES fold phase")
     fold_phase(rows[-1], errs)
+    params_pk = jindo.new_parameters(ZP220, 16512, 9)
     phase("Gaussian phase")
-    rows.append(gauss_phase(params, jindo.new_parameters(ZP220, 16512, 9), errs))
+    rows.append(gauss_phase(params, params_pk, errs))
+    phase("field-sample phase")
+    rows.append(field_phase(jindo, params, params_pk, errs))
     phase("big-field phase")
     rows.append(bigfield_phase(errs))
     phase("commit phase")

@@ -33,7 +33,7 @@ BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 
-KERNELS = ("ntt", "chacha", "twin", "aes", "bigfield", "gauss")
+KERNELS = ("ntt", "chacha", "twin", "aes", "bigfield", "gauss", "field")
 LAUNCHES = {k: 0 for k in KERNELS}
 
 
@@ -71,6 +71,7 @@ _SIGNATURES = {
     "ringo_bigfield": "ippppppppp",
     "ringo_gauss": "ipp",
     "ringo_gauss_loop": "pp",
+    "ringo_field_sample": "pp",
 }
 _CT = {"p": ctypes.c_void_p, "i": ctypes.c_int}
 

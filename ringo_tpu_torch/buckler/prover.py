@@ -24,7 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..csprng import UniformSampler
+from ..csprng import UniformSampler, field_sample
 from ..fields import limb
 from ..jindo.prover import sample_field_digits
 from ..rings.bigring import FPoly
@@ -83,8 +83,9 @@ class Prover:
     # -- helpers ---------------------------------------------------------
 
     def _rand_field(self, n: int) -> torch.Tensor:
-        """n uniform field elements as planes [w, n] on the device."""
-        return sample_field_digits(self.spec, n, self.uniform).to(self.device)
+        """n uniform field elements as planes [w, n] on the device (one
+        launch of the field-sampling kernel on the card)."""
+        return sample_field_digits(self.spec, n, self.uniform)
 
     def _balanced(self, plain_planes: torch.Tensor) -> np.ndarray:
         """Plain planes [w, n] -> balanced values: int64 where every lane
@@ -315,12 +316,14 @@ class Prover:
 
         def prepare_many(ids: list[int]):
             """One batched encode for a round's witnesses; the blinds are
-            drawn in witness order, as one at a time would draw them."""
+            drawn in witness order, one one-lane segment each, as one
+            ``_rand_field(1)`` at a time would draw them, in one call."""
             if not ids:
                 return
             with profiling.span("buckler.prove.encode_witness"):
-                blinds = torch.stack([self._rand_field(1)[:, 0] for _ in ids],
-                                     dim=1)                   # [w, t]
+                blinds = torch.cat(field_sample.draw_segments(
+                    self.spec, self.uniform, [("field", 1)] * len(ids)),
+                    dim=1)                                    # [w, t]
                 e, nt = self._encode_stack([w[i] for i in ids], blinds)
                 for j, i in enumerate(ids):
                     w_ecd_ntt[i] = nt[:, j]

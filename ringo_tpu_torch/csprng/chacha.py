@@ -25,11 +25,16 @@ _DIAGONALS = [(0, 5, 10, 15), (1, 6, 11, 12), (2, 7, 8, 13), (3, 4, 9, 14)]
 _M32 = 0xFFFFFFFF
 
 
-def key_from_bytes(raw: bytes) -> torch.Tensor:
-    """32 bytes -> int32[8] little-endian key words (raw bit patterns)."""
-    if len(raw) != 32:
+def key_from_bytes(raw) -> torch.Tensor:
+    """32 bytes (``bytes``, or uint8 [32] on any device) -> int32[8]
+    little-endian key words (raw bit patterns), on the bytes' device."""
+    if not isinstance(raw, torch.Tensor):
+        raw = torch.from_numpy(np.frombuffer(raw, dtype=np.uint8).copy())
+    if raw.dtype != torch.uint8 or raw.shape != (32,):
         raise ValueError("ChaCha20 key must be 32 bytes")
-    return torch.from_numpy(np.frombuffer(raw, dtype="<i4").copy())
+    if raw.storage_offset() % 4 or not raw.is_contiguous():
+        raw = raw.clone()
+    return raw.view(torch.int32)
 
 
 def _to_i32(x: torch.Tensor) -> torch.Tensor:

@@ -2,11 +2,13 @@
 
 Every (column, row) cell of the commitment matrix is encoded, sampled,
 NTT'd and MAC'd in whole-tensor operations (reference jindo/prover.go
-45-202, which commits one column at a time).  The host draws the small
-masking rows and two ChaCha20 keys, and the device (the Gaussian and AES
-kernels on the card) the COSAC corrections of the non-default cells and the
-mask-column noise, in exactly the JAX package's sampler order;
-``_commit_batch`` then runs the whole batch on the device:
+45-202, which commits one column at a time).  The device draws everything
+in exactly the JAX package's sampler order: the masking rows and the two
+ChaCha20 keys of a whole batch in one call of the uniform draw
+(csprng/field_sample.py: one launch of the field-sampling kernel on the
+card), the COSAC corrections of the non-default cells and the mask-column
+noise (the Gaussian and AES kernels); ``_commit_batch`` then runs the whole
+batch on the device:
 
 1. ChaCha20 entropy (CUDA kernel, csprng/chacha.py);
 2. base-b digits and drift centres (jindo/encoder.py);
@@ -36,7 +38,7 @@ import torch
 
 from .. import backend
 from ..csprng import RoundedGaussianSampler, UniformSampler
-from ..csprng import chacha
+from ..csprng import chacha, field_sample
 from ..csprng.gaussian import TwinCDTDevice
 from ..fields import limb
 from ..ops.horner import HornerPlan
@@ -51,27 +53,16 @@ from .params import Parameters
 
 
 def sample_field_digits(spec, n: int, u: UniformSampler) -> torch.Tensor:
-    """n uniform field elements in [0, p) as digit planes int64 [w, n]
-    (goff MustSetRandom: top-bit-masked rejection)."""
-    w = spec.w
-    out = torch.zeros((w, n), dtype=torch.int64)
-    top_mask = (1 << (spec.bits - 16 * (w - 1))) - 1
-    pd = torch.from_numpy(spec.p_digits.astype(np.int64)).reshape(w, 1)
-    need = torch.arange(n)
-    while len(need):
-        raw = u._take_bytes(2 * w * len(need)).view("<u2")
-        cand = torch.from_numpy(
-            raw.reshape(len(need), w).T.astype(np.int64).copy())
-        cand[-1] &= top_mask
-        ok = ~limb.geq(cand, pd)
-        out[:, need[ok]] = cand[:, ok]
-        need = need[~ok]
-    return out
+    """n uniform field elements in [0, p) as digit planes int64 [w, n] on
+    the sampler's device (goff MustSetRandom: top-bit-masked rejection;
+    csprng/field_sample.py)."""
+    return field_sample.draw_segments(spec, u, [("field", n)])[0]
 
 
 class Prover:
     # share of the card's free memory one batched dispatch may use
     MEM_SHARE = 0.5
+    LAYOUTS_MAX = 256   # commitment layouts kept, one per vector length
 
     def __init__(self, params: Parameters, crs: bytes,
                  seed: bytes | None = None, device=None,
@@ -86,6 +77,9 @@ class Prover:
         self.ring_q_out = p.ring_q_out.on(self.device)
         self.horner = HornerPlan(params.spec)
         self.ck = CommitKey(params, crs, self.device) if ck is None else ck
+        self._pd = torch.from_numpy(params.spec.p_digits.astype(np.int64)
+                                    ).reshape(-1, 1).to(self.device)
+        self._layouts = {}   # n -> _Layout
         self._reseed(seed)
         self.twin_ecd = TwinCDTDevice(p.ecd_std_dev, self.device)
         self.twin_ml = TwinCDTDevice(p.mlwe_std_dev, self.device)
@@ -189,40 +183,16 @@ class Prover:
 
     # ------------------------------------------------------------ host side
 
-    def _meta(self, v_head: torch.Tensor, n: int):
-        """Masking rows, sigma/populated maps of one commitment, drawn in
-        the uniform-stream order of the reference (last row, then mask
-        column); only the first cols*slots values of v are needed here
-        (reference genFirstLastRow, prover.go:65-86)."""
-        p, spec = self.params, self.spec
-        w = spec.w
-        B, R, S = p.cols + 1, p.rows, p.slots
-        cs = p.cols * S
-        head = torch.zeros((w, cs), dtype=torch.int64)
-        m = min(cs, n)
-        head[:, :m] = v_head[:, :m]
-        last_row = torch.zeros((w, cs), dtype=torch.int64)
-        last_row[:, :cs - 1] = sample_field_digits(spec, cs - 1, self.uniform)
-        first_row = torch.zeros((w, cs), dtype=torch.int64)
-        first_row[:, 0] = head[:, 0]
-        pd = spec.p_digits.astype(np.int64).reshape(w, 1)
-        first_row[:, 1:] = limb.sub(head[:, 1:], last_row[:, :cs - 1], pd)
-
-        sigma = np.zeros((B, R))
-        populated = np.zeros((B, R), dtype=bool)
-        ii = np.arange(p.cols)[:, None]
-        jj = np.arange(R)[None, :]
-        pop_data = (jj * cs + ii * S <= n) | (jj == 0) | (jj == R - 1)
-        populated[:p.cols] = pop_data
-        sigma[:p.cols] = np.where(pop_data, p.ecd_std_dev, 0.0)
-        sigma[:p.cols, 0] = p.ecd_blind_std_dev
-        mask_rows = self._mask_rows(n)
-        mask_vals = sample_field_digits(
-            spec, len(mask_rows) * S, self.uniform).reshape(w, len(mask_rows), S)
-        sigma[p.cols, mask_rows] = p.mask_std_dev
-        sigma[p.cols, 0] = p.mask_blind_std_dev
-        populated[p.cols, mask_rows] = True
-        return first_row, last_row, mask_rows, mask_vals, sigma, populated
+    def _layout(self, n: int) -> "_Layout":
+        """The layout of a commitment of n values, built once per n (the
+        cache is emptied when it holds LAYOUTS_MAX of them)."""
+        lay = self._layouts.get(n)
+        if lay is None:
+            if len(self._layouts) >= self.LAYOUTS_MAX:
+                self._layouts.clear()
+            lay = self._layouts[n] = _Layout(self.params, n, self._mask_rows(n),
+                                             self.device)
+        return lay
 
     def _mask_rows(self, n: int) -> np.ndarray:
         p = self.params
@@ -231,77 +201,86 @@ class Prover:
         return np.concatenate(
             [[0], 1 + np.nonzero(np.arange(1, R - 1) * cs <= n)[0], [R - 1]])
 
-    def _host_side_meta(self, first_row, last_row, mask_rows, mask_vals,
-                        sigma, populated):
-        """Sigma-class lanes, the COSAC corrections of the non-default
-        cells (all of them host-known masking rows), the two ChaCha20
-        keys and the mask-column noise, in the reference's stream order.
-        The corrections and the noise are drawn on the prover's device
-        (``sample_device``: the Gaussian kernel and the folded AES
-        keystream on the card) and stay there."""
-        p, spec = self.params, self.spec
-        w = spec.w
-        B, R, S = p.cols + 1, p.rows, p.slots
-        BR = B * R
+    def _meta(self, lays: list) -> list:
+        """The uniform draws of a batch's commitments, in the stream order
+        of the reference (for each: last row, mask column, then the two
+        ChaCha20 keys; reference genFirstLastRow, prover.go:65-86) as one
+        ``field_sample.draw_segments`` call; per commitment (last row [w,
+        cols*slots - 1], mask values [w, mask rows * slots], key_enc,
+        key_ml uint8 [32]) on the device."""
+        p = self.params
+        cs = p.cols * p.slots
+        segs = []
+        for lay in lays:
+            segs += [("field", cs - 1), ("field", len(lay.mask_rows) * p.slots),
+                     ("bytes", 32), ("bytes", 32)]
+        draws = field_sample.draw_segments(self.spec, self.uniform, segs)
+        return [draws[4 * i:4 * i + 4] for i in range(len(lays))]
+
+    def _rows(self, v: torch.Tensor, n: int, last: torch.Tensor):
+        """The masking rows on the device: last_row = the draw and a zero,
+        first_row = head - last_row (mod p) after head's first value, head
+        the first cols*slots values of v, zero-padded."""
+        p, w = self.params, self.spec.w
+        cs = p.cols * p.slots
+        head = torch.zeros((w, cs), dtype=torch.int64, device=self.device)
+        m = min(cs, n)
+        head[:, :m] = v[:, :m]
+        last_row = torch.zeros_like(head)
+        last_row[:, :cs - 1] = last
+        first_row = torch.empty_like(head)
+        first_row[:, 0] = head[:, 0]
+        first_row[:, 1:] = limb.sub(head[:, 1:], last, self._pd)
+        return first_row, last_row
+
+    def _host_side_meta(self, lay: "_Layout", first_row, last_row, mask_vals,
+                        key_enc, key_ml):
+        """The COSAC corrections of the non-default cells (all of them
+        masking rows, gathered from [first_row | last_row | mask column]
+        by ``lay.cells``), the two ChaCha20 keys as int32 [8] and the
+        mask-column noise, in the reference's stream order.  The
+        corrections and the noise are drawn on the prover's device
+        (``sample_device``: the Gaussian kernel and the folded AES keystream
+        on the card) and stay there."""
+        p, w = self.params, self.spec.w
         d = p.degree
-        dev = self.device
-        default = populated & np.isclose(sigma, p.ecd_std_dev, rtol=0, atol=0)
-        other = populated & ~default
-        OMAX = (B - 1) + R
-        oidx = np.nonzero(other.reshape(-1))[0]
-        oidx_pad = np.full(OMAX, BR, dtype=np.int64)
-        oidx_pad[:len(oidx)] = oidx
-        c_sub = torch.zeros((OMAX, d), dtype=torch.int64, device=dev)
-        if len(oidx):
-            mask_pos = {int(r): k for k, r in enumerate(mask_rows)}
-            e_sub = torch.zeros((w, len(oidx), S), dtype=torch.int64)
-            for k, flat in enumerate(oidx):
-                b, r = divmod(int(flat), R)
-                if b < p.cols:
-                    if r not in (0, R - 1):
-                        raise AssertionError("middle cells are default-sigma")
-                    src = first_row if r == 0 else last_row
-                    e_sub[:, k] = src[:, b * S:(b + 1) * S]
-                else:
-                    e_sub[:, k] = mask_vals[:, mask_pos[r]]
+        c_sub = torch.zeros((len(lay.oidx), d), dtype=torch.int64,
+                            device=self.device)
+        n_other = len(lay.cells)
+        if n_other:
+            src = torch.cat([first_row, last_row, mask_vals], dim=1)
+            e_sub = src.reshape(w, -1, p.slots)[:, lay.cells]
             ecd = self.ecd
-            centers = ecd.drift_centers(ecd.base_digits(e_sub.to(dev)))
-            sd_sub = torch.from_numpy(
-                np.repeat(sigma.reshape(-1)[oidx], d)).to(dev)
-            c_sub[:len(oidx)] = ecd.cosac.sample_device(
-                centers.reshape(-1), sd_sub).reshape(len(oidx), d)
+            centers = ecd.drift_centers(ecd.base_digits(e_sub))
+            sd = lay.sigmas[:, None].expand(n_other, d).reshape(-1)
+            c_sub[:n_other] = ecd.cosac.sample_device(
+                centers.reshape(-1), sd).reshape(n_other, d)
         K = p.mlwe_rank + p.in_msis_rank
-        key_enc = chacha.key_from_bytes(bytes(self.uniform._take_bytes(32)))
-        key_ml = chacha.key_from_bytes(bytes(self.uniform._take_bytes(32)))
         noise_mask = self.rounded.sample_device(
             0.0, p.mask_mlwe_std_dev, K * d).reshape(K, d)
-        return (torch.from_numpy(default.reshape(-1)),
-                torch.from_numpy(oidx_pad), c_sub, key_enc, key_ml,
-                noise_mask)
+        return (lay.default, lay.oidx, c_sub, chacha.key_from_bytes(key_enc),
+                chacha.key_from_bytes(key_ml), noise_mask)
 
     # ----------------------------------------------------------- device side
 
-    def _assemble(self, v: torch.Tensor, n: int, first_row, last_row,
-                  mask_rows, mask_vals) -> torch.Tensor:
+    def _assemble(self, v: torch.Tensor, n: int, lay: "_Layout", first_row,
+                  last_row, mask_vals) -> torch.Tensor:
         """Encode-input tensor e_all [w, B*R, S] of one commitment on the
         device: data rows, masking rows and the mask column (the layout
         of the reference's commitColTo, prover.go:89-127)."""
         p = self.params
         w = self.spec.w
         B, R, S = p.cols + 1, p.rows, p.slots
-        cs = p.cols * S
         dev = self.device
         vpad = torch.zeros((w, p.rank), dtype=torch.int64, device=dev)
         vpad[:, :n] = v
         v3 = vpad.reshape(w, R - 1, p.cols, S)
-        ii = torch.arange(p.cols, device=dev)[:, None]
-        jj = torch.arange(1, R - 1, device=dev)[None, :]
-        pop_mid = (jj * cs + ii * S <= n).to(torch.int64)     # [cols, R-2]
-        mid = v3[:, 1:].transpose(1, 2) * pop_mid[None, :, :, None]
-        colb = torch.cat([first_row.to(dev).reshape(w, p.cols, 1, S), mid,
-                          last_row.to(dev).reshape(w, p.cols, 1, S)], dim=2)
+        mid = v3[:, 1:].transpose(1, 2) * lay.pop_mid[None, :, :, None]
+        colb = torch.cat([first_row.reshape(w, p.cols, 1, S), mid,
+                          last_row.reshape(w, p.cols, 1, S)], dim=2)
         maskc = torch.zeros((w, 1, R, S), dtype=torch.int64, device=dev)
-        maskc[:, 0, torch.from_numpy(mask_rows).to(dev)] = mask_vals.to(dev)
+        maskc[:, 0, lay.mask_rows_dev] = mask_vals.reshape(
+            w, len(lay.mask_rows), S)
         return torch.cat([colb, maskc], dim=1).reshape(w, B * R, S)
 
     def _commit_batch(self, e_all, keys_enc, keys_ml, default_lanes, c_sub,
@@ -419,21 +398,31 @@ class Prover:
         return out
 
     def _commit_chunk(self, vs: list):
-        """One batch dispatch.  The spans (utils/profiling.py) name the
-        phases in a torch.profiler trace (ringo_tpu_torch/profile_commit.py)
-        and in the span registry."""
+        """One batch dispatch: the batch's uniform draws in one call
+        (``_meta``), then per commitment its rows and encode input on the
+        device and its Gaussian draws.  The spans (utils/profiling.py)
+        name the phases in a torch.profiler trace
+        (ringo_tpu_torch/profile_commit.py) and in the span registry."""
         p = self.params
-        cs = p.cols * p.slots
+        lays = [self._layout(v.shape[1]) for v in vs]
+        draws = None
         e_alls, sides = [], []
-        for v in vs:
+        for i, v in enumerate(vs):
             n = v.shape[1]
             with profiling.span("jindo.commit.meta"):
-                meta = self._meta(v[:, :cs].cpu(), n)
-            with profiling.span("jindo.commit.host_side"):
-                sides.append(self._host_side_meta(*meta))
+                if draws is None:   # the whole batch's, in the first span
+                    draws = self._meta(lays)
+                last, mask_vals, key_enc, key_ml = draws[i]
             with profiling.span("jindo.commit.assemble"):
-                e_alls.append(self._assemble(v.to(self.device), n, *meta[:4]))
-        stack = lambda j: torch.stack([s[j] for s in sides]).to(self.device)
+                v_dev = v.to(self.device)     # the one upload of v
+                rows = self._rows(v_dev, n, last)
+                e_alls.append(self._assemble(v_dev, n, lays[i], *rows,
+                                             mask_vals))
+                del v_dev
+            with profiling.span("jindo.commit.host_side"):
+                sides.append(self._host_side_meta(lays[i], *rows, mask_vals,
+                                                  key_enc, key_ml))
+        stack = lambda j: torch.stack([s[j] for s in sides])
         t = len(vs)
         e_i64, noise, ic_ntt, outer, overflow = self._commit_batch(
             torch.stack(e_alls), stack(3), stack(4), stack(0), stack(2),
@@ -553,3 +542,51 @@ class Prover:
         with profiling.span("jindo.evaluate.horner"):
             evals = self._evaluations(x, vs)
         return evals, pf
+
+
+class _Layout:
+    """What the host side of a commitment depends on only through its n
+    values (reference prover.go:65-127), on the device: ``mask_rows``
+    (numpy) and ``mask_rows_dev``, the data cells' ``pop_mid`` [cols, R-2]
+    (1 where a middle row is populated), ``default`` [B*R] (populated
+    cells of the default sigma: the twin-CDT lanes), ``oidx`` [cols + R]
+    (the other populated cells, padded with B*R), ``cells`` (each other
+    cell's slot block in the cells of [first_row | last_row | mask
+    column]) and ``sigmas`` (their standard deviations)."""
+
+    def __init__(self, p: Parameters, n: int, mask_rows: np.ndarray, dev):
+        B, R, S = p.cols + 1, p.rows, p.slots
+        cs = p.cols * S
+        ii = np.arange(p.cols)[:, None]
+        jj = np.arange(R)[None, :]
+        pop_data = (jj * cs + ii * S <= n) | (jj == 0) | (jj == R - 1)
+        sigma = np.zeros((B, R))
+        populated = np.zeros((B, R), dtype=bool)
+        populated[:p.cols] = pop_data
+        sigma[:p.cols] = np.where(pop_data, p.ecd_std_dev, 0.0)
+        sigma[:p.cols, 0] = p.ecd_blind_std_dev
+        sigma[p.cols, mask_rows] = p.mask_std_dev
+        sigma[p.cols, 0] = p.mask_blind_std_dev
+        populated[p.cols, mask_rows] = True
+        default = populated & np.isclose(sigma, p.ecd_std_dev, rtol=0, atol=0)
+        other = np.nonzero((populated & ~default).reshape(-1))[0]
+        oidx = np.full((B - 1) + R, B * R, dtype=np.int64)
+        oidx[:len(other)] = other
+        mask_pos = {int(r): k for k, r in enumerate(mask_rows)}
+        cells = np.empty(len(other), dtype=np.int64)
+        for k, flat in enumerate(other):
+            b, r = divmod(int(flat), R)
+            if b == p.cols:
+                cells[k] = 2 * p.cols + mask_pos[r]
+            elif r in (0, R - 1):
+                cells[k] = b if r == 0 else p.cols + b
+            else:
+                raise AssertionError("middle cells are default-sigma")
+        on = lambda a: torch.from_numpy(a).to(dev)
+        self.mask_rows = mask_rows
+        self.mask_rows_dev = on(mask_rows)
+        self.pop_mid = on((jj[:, 1:R - 1] * cs + ii * S <= n).astype(np.int64))
+        self.default = on(default.reshape(-1))
+        self.oidx = on(oidx)
+        self.cells = on(cells)
+        self.sigmas = on(sigma.reshape(-1)[other])
