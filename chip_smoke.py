@@ -62,7 +62,11 @@
    reduce_cols, the one-launch tree_sum, horner, powers, limb
    add/sub/neg/geq) against the plain versions on the card, exactly, at
    all seven field widths with the corner values 0, 1, p - 1 and the
-   all-0xFFFF plane, broadcast and sliced operands; horner and powers at
+   all-0xFFFF plane, broadcast and sliced operands, reduce_cols at m = 8,
+   2w - 1, 2w, 2w + 1 and 4w + 3 columns of up to 2^23 (all 2^23 - 1 in
+   one lane); each width's registers, stack frame and spills of the
+   mul_mod and reduce_cols kernels from ptxas (it fails on local memory
+   at w <= 28); horner and powers at
    x = 0, 1, p - 1 and a random point, n = 1, n = 700 (t = 3), a sliced
    vs, n = 2^15 (several blocks) and t = 43 at ZP240; then at the cells'
    shapes (the evaluate's horner and the verifier's tree sum at [16, 1,
@@ -1174,19 +1178,41 @@ def time_field(field_sample, label: str, spec, segs):
 BIGFIELD_FIELDS = ("ZP110", "ZP128", "ZP220", "ZP240", "ZP255", "ZP440", "ZP880")
 
 
-def bigfield_mul_adds(w: int) -> int:
-    """16 x 16-bit multiply-adds of one ``mul_mod`` lane: the product
-    x * y, the columns of floor(z / B^(w-1)) * mu up to q_hat's top digit,
-    and the low w + 2 digits of q_hat * p."""
-    q = sum(1 for i in range(w + 2) for j in range(w + 2) if i + j <= 2 * w + 1)
-    qp = sum(1 for i in range(w + 1) for j in range(w) if i + j <= w + 1)
-    return w * w + q + qp
+def barrett_word_products(w: int) -> int:
+    """32 x 32-bit word products of Barrett on ceil(w / 2)-word values:
+    the words 0 .. w of floor(z / B^(w-1)) * mu (q_hat is digits w + 1 ..
+    2w + 1) and the low ceil((w + 2) / 2) words of q_hat * p."""
+    h, hq, hz = (w + 1) // 2, (w + 2) // 2, (w + 3) // 2
+    q = sum(1 for i in range(hz) for j in range(hz) if i + j <= w)
+    qp = sum(1 for i in range(hq) for j in range(h) if i + j < hz)
+    return q + qp
+
+
+def mul_mod_ops(w: int) -> int:
+    """32-bit operations of one ``mul_mod`` lane: the word products of x *
+    y and of Barrett, four each (the low and the high half of a 32 x
+    32-bit product, a multiply-add each).  A count of 16 x 16-bit digit
+    products, two operations each, is about twice this and not the least
+    work: the word-level kernel does fewer."""
+    h = (w + 1) // 2
+    return 4 * (h * h + barrett_word_products(w))
+
+
+def reduce_cols_ops(w: int, m: int) -> int:
+    """32-bit operations of one ``reduce_cols`` lane of m columns: the fold
+    products of the words of floor(z / B^(2w-1)) that m columns reach
+    times B^(2w-1) mod p (below B^(2w+1)), and Barrett; four a word
+    product."""
+    h, s = (w + 1) // 2, 2 * w - 1
+    hw = (min(m + 1, 4 * w) - s + 1) // 2 if m + 1 > s else 0
+    fold = sum(1 for i in range(hw) for j in range(h) if i + j <= w)
+    return 4 * (fold + barrett_word_products(w))
 
 
 def bigfield_bound(ins, out, lanes: int, ops_per_lane: int):
     """Least time of one big-field call: each input read once as stored
     (a broadcast operand once), the output written once, ``ops_per_lane``
-    32-bit operations a lane (a multiply-add counts two, a digit step of a
+    32-bit operations a lane (a multiply-add counts two, a word step of a
     carry or borrow chain one)."""
     n_bytes = sum(t.numel() * t.element_size() for t in ins) + \
         out.numel() * out.element_size()
@@ -1195,11 +1221,27 @@ def bigfield_bound(ins, out, lanes: int, ops_per_lane: int):
 
 def horner_ops(w: int) -> int:
     """32-bit operations of one coefficient of Horner's rule: one multiply
-    and add mod p (``bigfield_mul_adds`` multiply-adds, two operations
-    each, and the w digit adds of the addend).  The rule needs one such
-    step a coefficient (no power plane), so this, not a product for the
-    power and another for the coefficient, is the function's work."""
-    return 2 * bigfield_mul_adds(w) + w
+    and add mod p (``mul_mod_ops`` and the ceil(w / 2) word adds of the
+    addend).  The rule needs one such step a coefficient (no power
+    plane), so this, not a product for the power and another for the
+    coefficient, is the function's work."""
+    return mul_mod_ops(w) + (w + 1) // 2
+
+
+def kernel_usage(kind: str, w: int) -> dict:
+    """ptxas's registers, stack frame (local memory), spills of the
+    bigfield.cu kernel ``kind`` at width w (the build's ``-Xptxas -v``
+    log)."""
+    import re
+
+    from ringo_tpu_torch import backend
+
+    hits = [v for k, v in backend.kernel_resources().items()
+            if re.search(rf"{kind}ILi{w}E", k)]
+    if len(hits) != 1:
+        raise AssertionError(f"bigfield: {len(hits)} ptxas records of "
+                             f"{kind}<{w}>")
+    return hits[0]
 
 
 def digit_planes(spec, shape, gen, corners: bool, wide: bool):
@@ -1229,7 +1271,10 @@ def bigfield_phase(errs: dict):
     on the card, exactly: every entry point at each of the seven field
     widths, with the corner values 0, 1, p - 1 (and the all-0xFFFF plane
     where the plain version takes values >= p: all but the tree sum),
-    broadcast and sliced operands; horner and powers at every kind of
+    broadcast and sliced operands, and ``reduce_cols`` at every column
+    count that changes its path (the mul_mod and reduce_cols kernels'
+    ptxas registers, stack frame and spills logged a width, none in local
+    memory at w <= 28); horner and powers at every kind of
     point, n = 1, a sliced vs, several blocks and t = 43; then at the
     cells' shapes: the Jindo evaluate's horner and the verifier's tree sum
     at [16, 1, 2^19], the PublicKey ring's horner, powers and tree sum at
@@ -1310,13 +1355,16 @@ def bigfield_phase(errs: dict):
         hold_horner(plan, digit_planes(spec, (1, 1 << 15), gen, True, False),
                     11, f"{name} [w, 1, 2^15] (several blocks)")
         # reduce_cols: BigLinMap's 2w + 1 columns (< 2^18), a verifier
-        # magnitude's 8 digits, more columns than reach the kept digits,
-        # columns up to 2^23 and all 0xFFFF
-        for m, hi in ((2 * w + 1, 1 << 18), (8, 1 << 16), (4 * w + 3, 1 << 23)):
+        # magnitude's 8 digits, the first fold (2w - 1, 2w), more columns
+        # than reach the kept digits, columns up to 2^23, all 0xFFFF and
+        # all 2^23 - 1
+        for m, hi in ((2 * w + 1, 1 << 18), (8, 1 << 16), (2 * w - 1, 1 << 23),
+                      (2 * w, 1 << 23), (4 * w + 3, 1 << 23)):
             cols = torch.randint(0, hi, (m, 5, 300), generator=gen,
                                  dtype=torch.int64)
             cols[:, 0, 0] = 0xFFFF
             cols[:, 0, 1] = 0
+            cols[:, 0, 2] = (1 << 23) - 1
             cols = cols.to("cuda")
             hold(big.reduce_cols(cols), big.reduce_cols_plain(cols),
                  f"reduce_cols {name} m = {m}")
@@ -1325,6 +1373,15 @@ def bigfield_phase(errs: dict):
         log(f"bigfield {name} (w = {w}): mul_mod, reduce_cols, tree_sum, add, "
             "sub, neg, geq, horner, powers equal to plain (corner values, "
             "broadcast, sliced)")
+        for kind in ("mul_mod_kernel", "reduce_cols_kernel"):
+            u = kernel_usage(kind, w)
+            log(f"bigfield {kind}<{w}>: {u['registers']} registers, "
+                f"{u['stack']} bytes stack frame (local memory), "
+                f"{u['spill_stores']} / {u['spill_loads']} bytes spill "
+                f"stores / loads, {u['lmem']} bytes lmem")
+            if w <= 28 and (u["stack"] or u["spill_stores"] or u["lmem"]):
+                raise AssertionError(f"bigfield: {kind}<{w}> uses local "
+                                     "memory")
     spec = fields.ZP240
     hold_horner(horner.HornerPlan(spec), digit_planes(spec, (43, 300), gen, True, True),
                 13, "ZP240 t = 43 [15, 43, 300]")
@@ -1349,7 +1406,7 @@ def bigfield_phase(errs: dict):
     y = digit_planes(spec, (n,), gen, True, False).flip(-1)
     mm = timed_pass(f"mul_mod ZP255 [16, 2^{LOG_N}]",
                     lambda: big.mul_mod(x, y), lambda: big.mul_mod_plain(x, y),
-                    (x, y), n, 2 * bigfield_mul_adds(w))
+                    (x, y), n, mul_mod_ops(w))
     plain_ms = bench.time_ms(lambda: big.mul_mod_plain(x, y), reps=3)
     row = dict(name="bigfield", route="cuda",
                source="ringo_tpu_torch/csrc/bigfield.cu",
@@ -1393,7 +1450,7 @@ def bigfield_phase(errs: dict):
     timed_pass(f"mul_mod ZP220 [14, {t}, 2^15] x [14, 1, 2^15]",
                lambda: big.mul_mod(v, P[:, None, :]),
                lambda: big.mul_mod_plain(v, P[:, None, :]),
-               (v, P), t * nr, 2 * bigfield_mul_adds(w))
+               (v, P), t * nr, mul_mod_ops(w))
     plan = horner.HornerPlan(spec)
     pt = X_POINT % spec.p
     steps = plan.steps_for(pt, nr).to("cuda")
@@ -1404,7 +1461,7 @@ def bigfield_phase(errs: dict):
     timed_pass("powers ZP220 [14, 2^15]",
                lambda: bigfield.powers_cuda(big, steps, nr),
                lambda: plan.powers_plain(steps, nr), (steps,), nr,
-               2 * bigfield_mul_adds(w))
+               mul_mod_ops(w))
     timed_pass(f"tree_sum ZP220 [14, {t}, 2^15]",
                lambda: horner.tree_sum(big, v),
                lambda: horner.tree_sum_plain(big, v), (v,), t * nr, 2 * w)
@@ -1412,7 +1469,7 @@ def bigfield_phase(errs: dict):
                          dtype=torch.int64).to("cuda")
     timed_pass(f"reduce_cols ZP220 [{2 * w + 1}, 32, 2048]",
                lambda: big.reduce_cols(cols), lambda: big.reduce_cols_plain(cols),
-               (cols,), 32 * 2048, 2 * (bigfield_mul_adds(w) - w * w + 3 * w))
+               (cols,), 32 * 2048, reduce_cols_ops(w, cols.shape[0]))
     # the CRT cutoff of a commit: geq of 8-digit magnitudes [8, 28, 256]
     # against [8, 1, 1] (a digit count that is no field's)
     a = torch.randint(0, 1 << 16, (8, 28, 256), generator=gen,

@@ -10,7 +10,9 @@ each source is compiled by its own ``nvcc`` (all started together) for
 ``sm_90a`` and the objects are linked into one shared library under
 ``build/`` beside the package, loaded with ``ctypes``.  Every C entry
 point returns ``cudaGetLastError()``; :func:`check` raises on anything
-but 0.
+but 0.  ptxas reports each kernel's registers, stack frame and spills
+(``-Xptxas -v``) into a log kept beside the library
+(:func:`kernel_resources`).
 
 Each wrapper adds one to ``LAUNCHES[name]`` where it launches its kernel
 and nowhere else, so a run can show that the main path went through it.
@@ -21,6 +23,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -88,39 +91,54 @@ def _sources() -> list[str]:
                   if f.endswith(".cu"))
 
 
-def build(verbose: bool = False) -> str:
-    """Compile every ``csrc/*.cu`` (one nvcc each, in parallel) and link
-    them into ``build/libringo_kernels_<hash>.so``; returns its path.
-    The hash covers the sources and flags, so an edit rebuilds."""
-    srcs = _sources()
+def _library_path() -> str:
+    """``build/libringo_kernels_<hash>.so``: the hash covers the sources
+    and flags, so an edit rebuilds."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in srcs:
+    for path in _sources():
         with open(path, "rb") as f:
             h.update(f.read())
-    tag = h.hexdigest()[:16]
-    so = os.path.join(BUILD_DIR, f"libringo_kernels_{tag}.so")
-    if os.path.exists(so):
+    return os.path.join(BUILD_DIR, f"libringo_kernels_{h.hexdigest()[:16]}.so")
+
+
+def _ptxas_log(so: str) -> str:
+    """The compilers' log kept beside the library ``so``."""
+    return so[:-len(".so")] + ".ptxas"
+
+
+def build(verbose: bool = False) -> str:
+    """Compile every ``csrc/*.cu`` (one nvcc each, in parallel) and link
+    them into the library of :func:`_library_path`; returns its path.  The
+    compilers' output (ptxas's ``-v`` report among it) goes to the
+    library's ``.ptxas`` log, and to stdout where ``verbose``.  A library
+    without its log is built again."""
+    srcs = _sources()
+    so = _library_path()
+    if os.path.exists(so) and os.path.exists(_ptxas_log(so)):
         return so
+    tag = os.path.basename(so)[len("libringo_kernels_"):-len(".so")]
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = _nvcc()
-    extra = ["-Xptxas", "-v"] if verbose else []
     objs, procs = [], []
     for src in srcs:
         obj = os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o")
         objs.append(obj)
         procs.append(subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, *extra, "-c", src, "-o", obj],
+            [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", src, "-o", obj],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
-    failed = []
+    failed, log = [], []
     for src, pr in zip(srcs, procs):
         out, _ = pr.communicate()
         text = out.decode(errors="replace")
+        log.append(text)
         if pr.returncode != 0:
             failed.append(f"{src}:\n{text}")
         elif verbose and text:
             print(text, flush=True)
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    with open(_ptxas_log(so), "w") as f:
+        f.write("\n".join(log))
     tmp = so + f".tmp{os.getpid()}"
     res = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", *objs, "-o", tmp],
                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
@@ -128,6 +146,46 @@ def build(verbose: bool = False) -> str:
         raise RuntimeError("nvcc link failed:\n" + res.stdout.decode())
     os.replace(tmp, so)
     return so
+
+
+def parse_ptxas(text: str) -> dict:
+    """ptxas ``-v`` output -> {mangled kernel name: dict(registers,
+    stack, spill_stores, spill_loads, lmem)}, bytes a thread (``stack``:
+    the stack frame, local memory that spills and local arrays take;
+    ``lmem``: where ptxas prints it, else 0), for every entry function."""
+    out: dict = {}
+    entry = props = None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+            out[entry] = dict(registers=None, stack=0, spill_stores=0,
+                              spill_loads=0, lmem=0)
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            props = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and props in out:
+            out[props].update(stack=int(m.group(1)),
+                              spill_stores=int(m.group(2)),
+                              spill_loads=int(m.group(3)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry in out:
+            out[entry]["registers"] = int(m.group(1))
+            lm = re.search(r"(\d+) bytes lmem", line)
+            out[entry]["lmem"] = int(lm.group(1)) if lm else 0
+    return out
+
+
+def kernel_resources() -> dict:
+    """:func:`parse_ptxas` of the built library's log (built first where
+    missing)."""
+    with open(_ptxas_log(build())) as f:
+        return parse_ptxas(f.read())
 
 
 def lib():

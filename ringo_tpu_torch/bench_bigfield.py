@@ -1,6 +1,9 @@
-"""Host cost a call of the big-field wrappers on the card.
+"""Host cost a call of the big-field wrappers on the card, and the
+``mul_mod`` / ``reduce_cols`` kernels' device time, this source's beside
+an earlier one's.
 
     python3 -m ringo_tpu_torch.bench_bigfield [--earlier DIR]
+    python3 -m ringo_tpu_torch.bench_bigfield --kernels [--earlier DIR]
 
 Host microseconds a call of ``fields/bigfield.py``'s wrappers at a
 2^10-lane shape ([16, 2^10] ZP255, where the kernel takes a few
@@ -14,17 +17,35 @@ queue holds, so the host, not the card, sets the loop's time.
 instance an earlier commit unpacked with ``git archive``) in a
 subprocess, in turns: earlier, this, this, earlier.
 
+--kernels: csrc/bigfield.cu built alone into a library per variant (this
+source, and with --earlier DIR that checkout's), each variant's
+registers, stack and spills from ptxas, its mul_mod at [16, 2^19] (ZP255)
+and [14, 4, 2^15] x [14, 1, 2^15] (ZP220, the Buckler ring) and
+reduce_cols at [29, 32, 2048] (ZP220, BigLinMap's 2w + 1 columns) held
+exactly against the plain versions, then timed in turns (the variants in
+order, then reversed) by CUDA events around calls of the C entry point
+(no wrapper): over back-to-back calls (``event_ms``, ``bench.time_ms``
+with 50 calls a window: the operands stay in the 50 MB L2 between calls
+where they fit) and one call at a time after
+reading a 128 MB buffer (``cold_ms``: operands in device memory); beside
+them the shipped wrapper's time by ``bench.time_ms``, which chip_smoke.py
+reports (its host cost a call bounds it where the kernel is shorter).
+
 Prints the card's name and power limit and one JSON object, and writes
-the same to chiprun_out/bench_bigfield.json.
+the same to chiprun_out/bench_bigfield.json (--kernels:
+chiprun_out/bench_bigfield_kernels.json).
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
+import statistics
 import subprocess
 import sys
+import threading
 import time
 
 REPS = 400
@@ -108,9 +129,140 @@ def wrapper_costs(root: str) -> dict:
     return rec
 
 
+def build_variants(variants) -> list:
+    """[(name, source)] -> [(name, ctypes entry, ptxas usage of the
+    mul_mod and reduce_cols kernels)]: one nvcc each, all at once."""
+    from . import backend
+
+    os.makedirs(backend.BUILD_DIR, exist_ok=True)
+    procs = []
+    for k, (name, src) in enumerate(variants):
+        so = os.path.join(backend.BUILD_DIR, f"bigfield_variant{k}.so")
+        procs.append((name, so, subprocess.Popen(
+            [backend._nvcc(), *backend.NVCC_FLAGS, "-Xptxas", "-v",
+             "-shared", src, "-o", so],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+    out = []
+    for name, so, pr in procs:
+        text = pr.communicate()[0].decode(errors="replace")
+        if pr.returncode != 0:
+            raise RuntimeError(f"nvcc of variant {name} failed:\n{text}")
+        usage = {k: v for k, v in backend.parse_ptxas(text).items()
+                 if "mul_mod_kernel" in k or "reduce_cols_kernel" in k}
+        fn = ctypes.CDLL(so).ringo_bigfield
+        fn.argtypes = [backend._CT[c] for c in backend._SIGNATURES["ringo_bigfield"]]
+        fn.restype = ctypes.c_int
+        out.append((name, fn, usage))
+    return out
+
+
+def cold_ms(fn, reps: int = 30) -> float:
+    """Median CUDA-event time of one call at a time, each after a read of
+    a 128 MB buffer that leaves none of the call's operands in L2."""
+    import torch
+
+    flush = torch.ones(1 << 25, dtype=torch.float32, device="cuda")
+    fn()
+    out = []
+    for _ in range(reps):
+        flush.sum()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        out.append(a.elapsed_time(b))
+    return statistics.median(out)
+
+
+def kernel_cases():
+    """(label, BigMul, op, operands, m, wrapper call, plain version) at
+    the shapes the main paths give mul_mod and reduce_cols."""
+    import torch
+
+    from .fields import ZP220, ZP255, bigfield
+    from .ops.bigmul import BigMul
+
+    gen = torch.Generator().manual_seed(15)
+
+    def planes(spec, shape):
+        d = torch.randint(0, 1 << 16, (spec.w,) + shape, generator=gen)
+        d[-1] %= spec.p >> (16 * (spec.w - 1))
+        return d.to("cuda")
+
+    b255, b220 = BigMul(ZP255), BigMul(ZP220)
+    x, y = planes(ZP255, (1 << 19,)), planes(ZP255, (1 << 19,))
+    v, P = planes(ZP220, (4, 1 << 15)), planes(ZP220, (1 << 15,))[:, None, :]
+    cols = torch.randint(0, 1 << 18, (2 * ZP220.w + 1, 32, 2048),
+                         generator=gen).to("cuda")
+    return [
+        ("mul_mod ZP255 [16, 2^19]", b255, bigfield.MUL_MOD, (x, y), 0,
+         lambda: b255.mul_mod(x, y), lambda: b255.mul_mod_plain(x, y)),
+        ("mul_mod ZP220 [14, 4, 2^15] x [14, 1, 2^15]", b220, bigfield.MUL_MOD,
+         (v, P), 0, lambda: b220.mul_mod(v, P), lambda: b220.mul_mod_plain(v, P)),
+        ("reduce_cols ZP220 [29, 32, 2048]", b220, bigfield.REDUCE_COLS, (cols,),
+         cols.shape[0], lambda: b220.reduce_cols(cols),
+         lambda: b220.reduce_cols_plain(cols)),
+    ]
+
+
+def kernel_times(args, here: str, rec: dict) -> None:
+    """--kernels: the variants' ptxas usage, exactness and times."""
+    import torch
+
+    from . import backend, bench
+    from .fields import bigfield
+
+    src = os.path.join(here, "ringo_tpu_torch", "csrc", "bigfield.cu")
+    variants = []
+    if args.earlier:
+        variants.append(("earlier", os.path.join(
+            os.path.abspath(args.earlier), "ringo_tpu_torch", "csrc",
+            "bigfield.cu")))
+    variants.append(("shipped", src))
+    # the package's own library (the wrapper's) builds beside the variants
+    lib = threading.Thread(target=backend.build)
+    lib.start()
+    built = build_variants(variants)
+    lib.join()
+    rec["ptxas"] = {name: usage for name, _, usage in built}
+    stream = backend.stream_ptr(torch.empty(1, device="cuda"))
+    rec["kernels"] = []
+    for label, big, op, ts, m, wrapped, plain in kernel_cases():
+        want = plain()
+        _, n, hdr = bigfield.pack(big.w, ts, m=m)
+        out = torch.empty_like(want)
+        ptrs = [t.data_ptr() for t in ts] + [0] * (3 - len(ts))
+
+        def call(fn):
+            backend.check(fn(op, hdr.ctypes.data, big.consts_addr,
+                             out.data_ptr(), *ptrs, 0, 0, stream), label)
+
+        for name, fn, _ in built:
+            out.zero_()
+            call(fn)
+            torch.cuda.synchronize()
+            if not torch.equal(out, want):
+                bad = int((out != want).any(0).sum())
+                raise AssertionError(f"{label}: variant {name} differs from "
+                                     f"the plain version in {bad} of {n} lanes")
+        times: dict = {name: [] for name, _, _ in built}
+        cold: dict = {name: [] for name, _, _ in built}
+        for name, fn, _ in built + built[::-1]:
+            times[name].append(bench.time_ms(lambda: call(fn), reps=50,
+                                             windows=5))
+            cold[name].append(cold_ms(lambda: call(fn)))
+        row = dict(label=label, lanes=n, event_ms=times, cold_ms=cold,
+                   wrapper_time_ms=bench.time_ms(wrapped))
+        rec["kernels"].append(row)
+        print(json.dumps(row), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--earlier")
+    ap.add_argument("--kernels", action="store_true")
     ap.add_argument("--root", help=argparse.SUPPRESS)
     args = ap.parse_args()
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -125,7 +277,17 @@ def main() -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
-    rec: dict = {"card": smi, "wrapper": []}
+    if args.kernels:
+        rec: dict = {"card": smi}
+        kernel_times(args, here, rec)
+        os.makedirs(os.path.join(here, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(here, "chiprun_out",
+                               "bench_bigfield_kernels.json"), "w") as f:
+            json.dump(rec, f, indent=1)
+        print(smi)
+        print(json.dumps(rec))
+        return 0
+    rec = {"card": smi, "wrapper": []}
 
     def earlier():
         res = subprocess.run(

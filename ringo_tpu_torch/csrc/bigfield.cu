@@ -17,17 +17,17 @@
 // contiguous [w, n].  The field's constants (p, mu = floor(B^(2w) / p)
 // and B^(2w-1) mod p) travel by value in the launch's parameters.
 //
-// mul_mod and reduce_cols: one thread per lane computes the plain
-// version's integers, digit for digit: the product x * y (column sums of
-// 32-bit products kept in a 64-bit accumulator, which ripples one digit a
-// column: the same digits as the plain version's lazy columns and ripple),
-// the fold of reduce_cols above B^(2w-1), then HAC 14.42 Barrett: q_hat =
-// floor(floor(z / B^(w-1)) * mu / B^(w+1)) mod B^(w+1), r = (z - q_hat * p)
-// mod B^(w+2), two conditional subtractions of p.  Every truncation is the
-// plain version's, so a digit plane outside [0, p) gives the same digits
-// there too.  Templated on w for the seven fields (7, 8, 14, 15, 16, 28,
-// 55): the loops are unrolled and the digits live in registers; at w = 55
-// the column loops stay loops and their digits live in local memory.
+// mul_mod and reduce_cols: each thread computes the plain version's
+// integers for one lane on 32-bit words (word k holds digits 2k and
+// 2k + 1): the product x * y, the fold of reduce_cols above B^(2w-1),
+// then HAC 14.42 Barrett with the plain version's mu = floor(B^(2w) / p):
+// q_hat = floor(floor(z / B^(w-1)) * mu / B^(w+1)) mod B^(w+1), r = (z -
+// q_hat * p) mod B^(w+2), two conditional subtractions of p on w + 2
+// digits.  Shifts by an odd digit count are funnel shifts, and every
+// truncation is the plain version's, at its digit, so any input the plain
+// version takes (digit planes >= p, m = 4w + 3 columns of up to 2^23) gives
+// the same digits (section below).  Templated on w for the seven fields
+// (7, 8, 14, 15, 16, 28, 55): fully unrolled, the words in registers.
 // add, sub, neg, geq: one thread per lane, the plain version's carry and
 // borrow chains in int64 over a digit count given at run time, inputs read
 // twice (the first pass decides the selection, the second writes), q read
@@ -47,12 +47,13 @@
 // composition's (powers by doubling, products, tree sum) for any order.
 //
 // What bounds it on the H100.  mul_mod at [16, 2^19] reads two int64
-// planes and writes one (201 MB, 0.060 ms at 3.35 TB/s) against ~2,000
-// 32-bit operations a lane (~0.03 ms at the integer rate): bytes.  The
+// planes and writes one (201 MB, 0.060 ms at 3.35 TB/s) against 189 word
+// products a lane (756 32-bit operations, 0.012 ms at the integer rate):
+// bytes, as for reduce_cols at BigLinMap's 2w + 1 columns.  The
 // tree sum of [16, 1, 2^19] reads 67 MB (0.020 ms): bytes.  horner at
-// [16, 1, 2^19] reads the same 67 MB but does 2^19 multiply-adds mod p of
-// ~750 16-bit multiply-adds each (~0.023 ms at the integer rate), so the
-// arithmetic bounds it, as it does powers.
+// [16, 1, 2^19] reads the same 67 MB and does 2^19 multiply-adds mod p,
+// 189 word products each (0.012 ms at the integer rate): bytes too, as
+// for powers; its 16-bit products (~750 multiply-adds each) take longer.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -60,8 +61,10 @@
 namespace {
 
 constexpr int kMaxW = 55;
-// above this width the column loops stay loops (their digits then live in
-// local memory): fully unrolled, w = 55 took ptxas 20 s for mul_mod alone
+constexpr int kMaxWords = (kMaxW + 3) / 2;   // words of w + 2 digits
+// above this width the Horner and powers kernels' 16-bit column loops stay
+// loops (their digits then live in local memory): fully unrolled, w = 55
+// took ptxas 20 s for one product
 constexpr int kUnrollW = 32;
 constexpr long long kMask = 0xFFFF;
 
@@ -102,6 +105,13 @@ struct Consts {
   uint32_t bs[kMaxW];      // B^(2w-1) mod p
 };
 
+// the same constants on 32-bit words (mul_mod, reduce_cols), zero above
+struct Words {
+  uint32_t p[kMaxWords];   // p (w + 2 digits)
+  uint32_t mu[kMaxWords];  // mu (w + 2 digits)
+  uint32_t bs[kMaxWords];  // B^(2w-1) mod p (w digits)
+};
+
 // element offsets of lane i in the first NOPS operands
 template <int NOPS>
 __device__ __forceinline__ void lane_offsets(const Args& a, unsigned i,
@@ -119,6 +129,8 @@ __device__ __forceinline__ void lane_offsets(const Args& a, unsigned i,
   }
 }
 
+// The Horner and powers kernels' product on 16-bit digits.
+//
 // r = z mod p for the 2W+1 digits of z (HAC 14.42, the plain version's
 // _barrett step for step); r has W+2 digits, the low W are the result.
 template <int W>
@@ -239,73 +251,250 @@ __device__ __noinline__ void horner_step(uint32_t (&acc)[W],
   mul_add_mod<W, true>(acc, u, v, c, acc);
 }
 
+// ------------------------------------------- mul_mod and reduce_cols on words
+//
+// The plain version's integers on 32-bit words, word k holding digits 2k
+// (low half) and 2k + 1; a w-digit value takes H = ceil(w / 2) words.  A
+// product is product scanning: column k's 32 x 32 -> 64-bit products go
+// into a three-word accumulator, each by one self-contained carry chain
+// (mad.lo.cc, madc.hi.cc, addc), and the accumulator moves up a word a
+// column; of the top column kept only the low word is needed, so its
+// products are plain 32-bit multiply-adds.  ceil(w/2)^2 word products
+// replace w^2 digit products.  Barrett (barrett_words) keeps the plain
+// version's truncations at their digits:
+//   zh = floor(z / B^(w-1))            (a funnel shift where w - 1 is odd)
+//   q_hat = floor(zh * mu / B^(w+1)) mod B^(w+1)   (product words 0 .. w)
+//   r = (z - q_hat * p) mod B^(w+2), then r - p twice where no borrow on
+//       w + 2 digits, and the low w digits out.
+// reduce_cols ripples its int64 columns in 64-bit, as the plain version
+// does, packing the digits into words as they come (mod B^(m+1)); where m +
+// 1 > 2w - 1 it folds z' = (z mod B^(2w-1) + hi * (B^(2w-1) mod p)) mod
+// B^(2w+1), hi = floor(z / B^(2w-1)) mod B^(2w+1), by rows of hi's words
+// (only those the m columns reach: 2 at BigLinMap's 2w + 1), and reduces z'.
+//
+// Latency: a thread loads its lane's digits (the low 32-bit word of each
+// int64, one LDG each) before its first product; at 46-78 registers (w <=
+// 16) 8 blocks of 128 threads an SM hold a Buckler shape's lanes in one
+// wave, and the warps' loads, products and stores overlap.  Two lanes a
+// thread (the second's loads arriving under the first's products), 64 or
+// 256 threads a block measured no faster (PERF.md).  No local memory at
+// any width (-Xptxas -v, chip_smoke.py's register log).
+
+constexpr int kWordThreads = 128;
+
+// (c2:c1:c0) += a * b, one carry chain
+__device__ __forceinline__ void mac(uint32_t& c0, uint32_t& c1, uint32_t& c2,
+                                    uint32_t a, uint32_t b) {
+  asm("mad.lo.cc.u32 %0, %3, %4, %0;\n\t"
+      "madc.hi.cc.u32 %1, %3, %4, %1;\n\t"
+      "addc.u32 %2, %2, 0;"
+      : "+r"(c0), "+r"(c1), "+r"(c2)
+      : "r"(a), "r"(b));
+}
+
+// out = a * b mod 2^(32 NO): a[i] (i < NA), b[j] (j < NB), product scanning
+template <int NA, int NB, int NO, class A, class B>
+__device__ __forceinline__ void mul_words(const A& a, const B& b,
+                                          uint32_t (&out)[NO]) {
+  uint32_t c0 = 0, c1 = 0, c2 = 0;
+#pragma unroll
+  for (int k = 0; k < NO; ++k) {
+#pragma unroll
+    for (int i = 0; i < NA; ++i) {
+      const int j = k - i;
+      if (j >= 0 && j < NB) {
+        if (k == NO - 1) c0 += a[i] * b[j];
+        else mac(c0, c1, c2, a[i], b[j]);
+      }
+    }
+    out[k] = c0;
+    c0 = c1;
+    c1 = c2;
+    c2 = 0;
+  }
+}
+
+// out = floor(v / B^S) mod 2^(32 NO) for the NI words v (zero above)
+template <int S, int NI, int NO>
+__device__ __forceinline__ void shr_digits(const uint32_t (&v)[NI],
+                                           uint32_t (&out)[NO]) {
+#pragma unroll
+  for (int k = 0; k < NO; ++k) {
+    const int o = S / 2 + k;
+    const uint32_t lo = o < NI ? v[o] : 0u;
+    if (S % 2 == 0) {
+      out[k] = lo;
+    } else {
+      const uint32_t hi = o + 1 < NI ? v[o + 1] : 0u;
+      out[k] = __funnelshift_r(lo, hi, 16);
+    }
+  }
+}
+
+// v mod B^D for the ceil(D / 2) words v
+template <int D, int N>
+__device__ __forceinline__ void keep_digits(uint32_t (&v)[N]) {
+  static_assert(N == (D + 1) / 2, "keep_digits: word count");
+  if (D % 2) v[D / 2] &= 0xFFFFu;
+}
+
+// r = (a - b) mod 2^(32 N); returns the borrow out
+template <int N, class A, class B>
+__device__ __forceinline__ uint32_t sub_words(const A& a, const B& b,
+                                              uint32_t (&r)[N]) {
+  uint32_t borrow = 0;
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    const uint64_t t = (uint64_t)a[k] - b[k] - borrow;
+    r[k] = (uint32_t)t;
+    borrow = (uint32_t)(t >> 63);
+  }
+  return borrow;
+}
+
+// r = z mod p for z (NZ words, zero above) < B^(2W+1): the plain
+// version's _barrett on words; r holds W + 2 digits, the low W the result
+template <int W, int NZ>
+__device__ __forceinline__ void barrett_words(const uint32_t (&z)[NZ],
+                                              const Words& c,
+                                              uint32_t (&r)[(W + 3) / 2]) {
+  constexpr int H = (W + 1) / 2, HQ = (W + 2) / 2, HZ = (W + 3) / 2;
+  uint32_t zh[HZ];                   // floor(z / B^(W-1)), W + 2 digits
+  shr_digits<W - 1>(z, zh);
+  uint32_t q[W + 1];                 // zh * mu mod B^(2W+2)
+  mul_words<HZ, HZ, W + 1>(zh, c.mu, q);
+  uint32_t qh[HQ];                   // q_hat: digits W+1 .. 2W+1 of q, so
+  shr_digits<W + 1>(q, qh);          // mod B^(W+1) (q has no word W+1)
+  uint32_t qp[HZ], zl[HZ];           // q_hat * p, z mod B^(W+2)
+  mul_words<HQ, H, HZ>(qh, c.p, qp);
+#pragma unroll
+  for (int k = 0; k < HZ; ++k) zl[k] = k < NZ ? z[k] : 0u;
+  sub_words<HZ>(zl, qp, r);
+  keep_digits<W + 2>(r);
+#pragma unroll
+  for (int rep = 0; rep < 2; ++rep) {
+    uint32_t d[HZ];
+    if (!sub_words<HZ>(r, c.p, d)) {
+#pragma unroll
+      for (int k = 0; k < HZ; ++k) r[k] = d[k];
+    }
+  }
+}
+
+// the W digits of operand o at element offset off, packed into words: the
+// low 32-bit word of each int64 digit (< 2^16), two digits a word
 template <int W>
-__global__ void __launch_bounds__(128)
-mul_mod_kernel(const Args a, const Consts c) {
+__device__ __forceinline__ void load_words(const Operand& o, long long off,
+                                           uint32_t (&v)[(W + 1) / 2]) {
+  const uint32_t* p = reinterpret_cast<const uint32_t*>(o.ptr + off);
+  const long long ds = 2 * o.dstride;
+#pragma unroll
+  for (int k = 0; k < (W + 1) / 2; ++k) {
+    const uint32_t lo = __ldg(p + (2 * k) * ds);
+    const uint32_t hi = 2 * k + 1 < W ? __ldg(p + (2 * k + 1) * ds) : 0u;
+    v[k] = __byte_perm(lo, hi, 0x5410);
+  }
+}
+
+// the low W digits of r into the contiguous [W, n] output, lane i
+template <int W, int N>
+__device__ __forceinline__ void store_words(const Args& a, unsigned i,
+                                             const uint32_t (&r)[N]) {
+#pragma unroll
+  for (int j = 0; j < W; ++j)
+    a.out[(long long)j * a.n + i] = (r[j / 2] >> (16 * (j % 2))) & 0xFFFFu;
+}
+
+// register caps 65,536 / (128 threads x blocks): 128 at w <= 16, then 255
+#define WORD_MIN_BLOCKS(W) ((W) <= 16 ? 4 : (W) <= 28 ? 2 : 1)
+
+template <int W>
+__global__ void __launch_bounds__(kWordThreads, WORD_MIN_BLOCKS(W))
+mul_mod_kernel(const Args a, const Words c) {
+  constexpr int H = (W + 1) / 2;
   const unsigned i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= a.n) return;
   long long off[2];
   lane_offsets<2>(a, i, off);
-  uint32_t x[W], y[W];
-#pragma unroll
-  for (int j = 0; j < W; ++j) {
-    x[j] = (uint32_t)a.op[0].ptr[off[0] + j * a.op[0].dstride];
-    y[j] = (uint32_t)a.op[1].ptr[off[1] + j * a.op[1].dstride];
-  }
-  uint32_t r[W];
-  mul_mod<W>(x, y, c, r);
-#pragma unroll
-  for (int j = 0; j < W; ++j) a.out[(long long)j * a.n + i] = r[j];
+  uint32_t x[H], y[H];
+  load_words<W>(a.op[0], off[0], x);
+  load_words<W>(a.op[1], off[1], y);
+  uint32_t z[2 * H];
+  mul_words<H, H, 2 * H>(x, y, z);
+  uint32_t r[(W + 3) / 2];
+  barrett_words<W>(z, c, r);
+  store_words<W>(a, i, r);
 }
 
 template <int W>
-__global__ void __launch_bounds__(128)
-reduce_cols_kernel(const Args a, const Consts c) {
-  constexpr int S = 2 * W - 1;
+__global__ void __launch_bounds__(kWordThreads, WORD_MIN_BLOCKS(W))
+reduce_cols_kernel(const Args a, const Words c) {
+  constexpr int S = 2 * W - 1, ND = 4 * W, H = (W + 1) / 2;
   const unsigned i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= a.n) return;
+  // digits past ND - 1 = S + 2W reach none of the 2W + 1 digits of z'
+  const int m = (int)(a.m < ND ? a.m : ND);
+  // hi's words that the m columns reach (none without a fold)
+  const int hw = m + 1 > S ? ((m + 1 < ND ? m + 1 : ND) - S + 1) / 2 : 0;
+  const long long ds = a.op[0].dstride;
   long long off[1];
   lane_offsets<1>(a, i, off);
   const long long* col = a.op[0].ptr + off[0];
-  const long long ds = a.op[0].dstride;
-  const int m = a.m;
-  // z = ripple(cols, m + 1): low digits z[0 .. S-1], high digits z[S ..];
-  // above z[S + 2W] nothing reaches the 2W+1 digits kept below
-  uint32_t lo[S], hi[2 * W + 1];
+  // z = ripple(cols, m + 1) mod B^ND, in 64-bit, two digits a word
+  uint32_t z[2 * W];
   long long carry = 0;
 #pragma unroll
-  for (int j = 0; j < S + 2 * W + 1; ++j) {
-    uint32_t d = 0;
-    if (j < m) {
-      const long long s = col[j * ds] + carry;
-      d = (uint32_t)(s & kMask);
-      carry = s >> 16;
-    } else if (j == m) {
-      d = (uint32_t)(carry & kMask);
-    }
-    if (j < S) lo[j] = d; else hi[j - S] = d;
-  }
-  // z' = (z mod B^S + floor(z / B^S) * (B^S mod p)) mod B^(2W+1)
-  uint32_t z[2 * W + 1];
-  uint64_t acc = 0;
-  const bool fold = m + 1 > S;
-#pragma unroll (W > kUnrollW ? 1 : 2 * W + 1)
-  for (int k = 0; k <= 2 * W; ++k) {
-    if (k < S) acc += lo[k];
-    if (fold) {
+  for (int k = 0; k < 2 * W; ++k) {
+    uint32_t d[2];
 #pragma unroll
-      for (int t = 0; t <= 2 * W; ++t) {
-        const int j = k - t;
-        if (j >= 0 && j < W) acc += (uint64_t)hi[t] * c.bs[j];
+    for (int h = 0; h < 2; ++h) {
+      const int j = 2 * k + h;
+      d[h] = 0;
+      if (j < m) {
+        const long long s = __ldg(col + j * ds) + carry;
+        d[h] = (uint32_t)(s & kMask);
+        carry = s >> 16;
+      } else if (j == m) {
+        d[h] = (uint32_t)(carry & kMask);
       }
     }
-    z[k] = (uint32_t)(acc & kMask);
-    acc >>= 16;
+    z[k] = d[0] | d[1] << 16;
   }
-  uint32_t r[W + 2];
-  barrett<W>(z, c, r);
+  // hi = floor(z / B^S) mod B^(2W+1) (z stops at digit S + 2W); f = hi *
+  // bs mod B^(2W+1) by rows i < hw: row i adds into f[i .. i+H-1] and
+  // writes its carry to the word f[i+H], which no earlier row reached
+  // (t < 2^64: a 32 x 32-bit product plus two words)
+  uint32_t hi[W + 1], f[W + 1];
+  shr_digits<S>(z, hi);
 #pragma unroll
-  for (int j = 0; j < W; ++j) a.out[(long long)j * a.n + i] = r[j];
+  for (int k = 0; k <= W; ++k) f[k] = 0;
+#pragma unroll
+  for (int row = 0; row <= W; ++row) {
+    if (row < hw) {
+      uint32_t up = 0;
+#pragma unroll
+      for (int j = 0; j < H && row + j <= W; ++j) {
+        const uint64_t t = (uint64_t)hi[row] * c.bs[j] + f[row + j] + up;
+        f[row + j] = (uint32_t)t;
+        up = (uint32_t)(t >> 32);
+      }
+      if (row + H <= W) f[row + H] = up;
+    }
+  }
+  // z' = (z mod B^S + f) mod B^(2W+1)
+  uint32_t zf[W + 1];
+  uint32_t cy = 0;
+#pragma unroll
+  for (int k = 0; k <= W; ++k) {
+    const uint32_t lo = k < W - 1 ? z[k] : k == W - 1 ? z[k] & 0xFFFFu : 0u;
+    const uint64_t t = (uint64_t)lo + f[k] + cy;
+    zf[k] = (uint32_t)t;
+    cy = (uint32_t)(t >> 32);
+  }
+  keep_digits<2 * W + 1>(zf);
+  uint32_t r[(W + 3) / 2];
+  barrett_words<W>(zf, c, r);
+  store_words<W>(a, i, r);
 }
 
 // acc = (acc + v) mod p for canonical acc, v (limb.add's steps)
@@ -734,12 +923,13 @@ limb_kernel(const Args a, int op) {
 }
 
 template <int W>
-int launch(int op, const Args& a, const Consts& c, cudaStream_t st) {
-  const unsigned grid = (a.n + 127) / 128;
+int launch(int op, const Args& a, const Consts& c, const Words& wc,
+           cudaStream_t st) {
+  constexpr int T = kWordThreads;
   if (op == MUL_MOD) {
-    mul_mod_kernel<W><<<grid, 128, 0, st>>>(a, c);
+    mul_mod_kernel<W><<<(a.n + T - 1) / T, T, 0, st>>>(a, wc);
   } else if (op == REDUCE_COLS) {
-    reduce_cols_kernel<W><<<grid, 128, 0, st>>>(a, c);
+    reduce_cols_kernel<W><<<(a.n + T - 1) / T, T, 0, st>>>(a, wc);
   } else if (op == TREE_SUM) {
     tree_sum_kernel<W><<<a.n * a.parts, kSumThreads, 0, st>>>(a, c);
   } else if (op == HORNER) {
@@ -805,14 +995,21 @@ extern "C" int ringo_bigfield(int op, const long long* hdr,
     c.mu[j] = (uint32_t)consts[a.w + 2 + j];
   }
   for (int j = 0; j < a.w; ++j) c.bs[j] = (uint32_t)consts[2 * a.w + 4 + j];
+  // the same digits packed two a word: digit j into word j / 2
+  Words wc = {};
+  for (int j = 0; j < a.w + 2; ++j) {
+    wc.p[j / 2] |= c.p[j] << (16 * (j % 2));
+    wc.mu[j / 2] |= c.mu[j] << (16 * (j % 2));
+    if (j < a.w) wc.bs[j / 2] |= c.bs[j] << (16 * (j % 2));
+  }
   switch (a.w) {
-    case 7: return launch<7>(op, a, c, st);
-    case 8: return launch<8>(op, a, c, st);
-    case 14: return launch<14>(op, a, c, st);
-    case 15: return launch<15>(op, a, c, st);
-    case 16: return launch<16>(op, a, c, st);
-    case 28: return launch<28>(op, a, c, st);
-    case 55: return launch<55>(op, a, c, st);
+    case 7: return launch<7>(op, a, c, wc, st);
+    case 8: return launch<8>(op, a, c, wc, st);
+    case 14: return launch<14>(op, a, c, wc, st);
+    case 15: return launch<15>(op, a, c, wc, st);
+    case 16: return launch<16>(op, a, c, wc, st);
+    case 28: return launch<28>(op, a, c, wc, st);
+    case 55: return launch<55>(op, a, c, wc, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

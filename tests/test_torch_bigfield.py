@@ -10,9 +10,13 @@ run:
 * the wrappers' argument checks, and that a wrapper given CPU tensors
   raises instead of falling back;
 * the kernel's per-lane steps, written out in Python ints as the CUDA
-  source runs them (product scanning, the fold of reduce_cols, Barrett,
-  the tree sum's order, the limb chains in two passes), against the plain
-  versions on ZP110, ZP255 and ZP880, corner values included.
+  source runs them (the Horner and powers kernels' 16-bit product and
+  Barrett, the tree sum's order, the limb chains in two passes), against
+  the plain versions on ZP110, ZP255 and ZP880, corner values included;
+* the word-level mul_mod and reduce_cols kernels step for step (32-bit
+  words, carry chains, funnel shifts, truncations) against the plain
+  versions at all seven field widths, on the corner planes and on every
+  column count and magnitude that changes their path.
 
 Exact equality throughout."""
 
@@ -23,12 +27,17 @@ import pytest
 import torch
 
 from ringo_tpu_torch import backend
+from ringo_tpu_torch import fields as F
 from ringo_tpu_torch.fields import ZP110, ZP255, ZP880, bigfield, limb
 from ringo_tpu_torch.ops import horner
 from ringo_tpu_torch.ops.bigmul import BigMul
 
 FIELDS = {"zp110": ZP110, "zp255": ZP255, "zp880": ZP880}
+# one field of each width the kernel is built for
+ALL_FIELDS = {name.lower(): getattr(F, name) for name in (
+    "ZP110", "ZP128", "ZP220", "ZP240", "ZP255", "ZP440", "ZP880")}
 MASK = 0xFFFF
+M32 = 0xFFFFFFFF
 
 
 @pytest.fixture(autouse=True)
@@ -232,7 +241,8 @@ def _k_barrett(w, z, p, mu):
 
 
 def _k_mul_mod(big, x, y):
-    """mul_mod_kernel<W> on one lane's digit lists."""
+    """mul_mod<W> (the Horner and powers kernels' product) on one lane's
+    digit lists."""
     w = big.w
     p, mu, _ = _k_consts(big)
     z, acc = [0] * (2 * w + 1), 0
@@ -244,37 +254,6 @@ def _k_mul_mod(big, x, y):
         z[col] = acc & MASK
         acc >>= 16
     z[2 * w] = acc & MASK
-    return _k_barrett(w, z, p, mu)
-
-
-def _k_reduce_cols(big, col):
-    """reduce_cols_kernel<W> on one lane's column list."""
-    w, m = big.w, len(col)
-    p, mu, bs = _k_consts(big)
-    S = 2 * w - 1
-    lo, hi, carry = [0] * S, [0] * (2 * w + 1), 0
-    for j in range(S + 2 * w + 1):
-        d = 0
-        if j < m:
-            s = col[j] + carry
-            d, carry = s & MASK, s >> 16
-        elif j == m:
-            d = carry & MASK
-        if j < S:
-            lo[j] = d
-        else:
-            hi[j - S] = d
-    z, acc = [0] * (2 * w + 1), 0
-    for k in range(2 * w + 1):
-        if k < S:
-            acc += lo[k]
-        if m + 1 > S:
-            for t in range(2 * w + 1):
-                j = k - t
-                if 0 <= j < w:
-                    acc += hi[t] * bs[j]
-        z[k] = acc & MASK
-        acc >>= 16
     return _k_barrett(w, z, p, mu)
 
 
@@ -304,9 +283,9 @@ def test_kernel_steps_mul_mod(name):
                                     ("zp255", 33), ("zp255", 31),
                                     ("zp880", 111)])
 def test_kernel_steps_reduce_cols(name, m):
-    """biglinmap's count 2w+1, fewer columns than the fold needs, and more
-    than reach the kept digits; columns up to 2^23 and the all-0xFFFF
-    ones."""
+    """reduce_cols_kernel<W> (the word-level model below): biglinmap's
+    count 2w+1, fewer columns than the fold needs, and more than reach the
+    kept digits; columns up to 2^23 and the all-0xFFFF ones."""
     spec = FIELDS[name]
     big = BigMul(spec)
     rng = np.random.default_rng(m)
@@ -315,7 +294,203 @@ def test_kernel_steps_reduce_cols(name, m):
     cols[:, 1] = 0
     cols = torch.from_numpy(cols)
     want = big.reduce_cols_plain(cols)
-    assert [_k_reduce_cols(big, c) for c in _lanes(cols)] == _lanes(want)
+    assert [_w_reduce_cols(big, c) for c in _lanes(cols)] == _lanes(want)
+
+
+# ------------------------- mul_mod and reduce_cols on words, step for step
+
+def _w_pack(digits, n):
+    """Digits -> n words, digit j in word j // 2 (__byte_perm(lo, hi,
+    0x5410) of two digits < 2^16), zero above."""
+    d = list(digits) + [0] * (2 * n - len(digits))
+    return [(d[2 * k] & MASK) | (d[2 * k + 1] & MASK) << 16 for k in range(n)]
+
+
+def _w_consts(big):
+    """The kernel's Words: p, mu (w + 2 digits each) and B^(2w-1) mod p (w
+    digits) packed by the host entry point."""
+    p, mu, bs = _k_consts(big)
+    hz = (big.w + 3) // 2
+    return _w_pack(p, hz), _w_pack(mu, hz), _w_pack(bs, hz)
+
+
+def _w_mac(c, a, b):
+    """mac: (c2:c1:c0) += a * b as mad.lo.cc, madc.hi.cc, addc."""
+    c0, c1, c2 = c
+    prod = a * b
+    s = c0 + (prod & M32)
+    c0, cc = s & M32, s >> 32
+    s = c1 + (prod >> 32) + cc
+    c1, cc = s & M32, s >> 32
+    return c0, c1, (c2 + cc) & M32
+
+
+def _w_mul(a, b, na, nb, no):
+    """mul_words<NA, NB, NO>: product scanning, the top column's low word
+    by 32-bit multiply-adds."""
+    c, out = (0, 0, 0), []
+    for k in range(no):
+        for i in range(na):
+            j = k - i
+            if 0 <= j < nb:
+                if k == no - 1:
+                    c = ((c[0] + a[i] * b[j]) & M32, c[1], c[2])
+                else:
+                    c = _w_mac(c, a[i], b[j])
+        out.append(c[0])
+        c = (c[1], c[2], 0)
+    return out
+
+
+def _w_shr(v, s, no):
+    """shr_digits<S>: floor(v / B^S) mod 2^(32 no), __funnelshift_r(lo, hi,
+    16) where S is odd."""
+    out = []
+    for k in range(no):
+        o = s // 2 + k
+        lo = v[o] if o < len(v) else 0
+        if s % 2 == 0:
+            out.append(lo)
+        else:
+            hi = v[o + 1] if o + 1 < len(v) else 0
+            out.append(((hi << 32 | lo) >> 16) & M32)
+    return out
+
+
+def _w_keep(v, d):
+    """keep_digits<D>: v mod B^D on its ceil(D / 2) words."""
+    assert len(v) == (d + 1) // 2
+    if d % 2:
+        v[d // 2] &= MASK
+
+
+def _w_sub(a, b, n):
+    """sub_words<N>: (a - b) mod 2^(32 n) and the borrow out, in 64-bit."""
+    r, borrow = [], 0
+    for k in range(n):
+        t = (a[k] - b[k] - borrow) & ((1 << 64) - 1)
+        r.append(t & M32)
+        borrow = t >> 63
+    return r, borrow
+
+
+def _w_barrett(w, z, consts):
+    """barrett_words<W>: z (words, zero above) < B^(2w+1) -> w + 2 digits
+    in words, the low w the result."""
+    p, mu, _ = consts
+    h, hq, hz = (w + 1) // 2, (w + 2) // 2, (w + 3) // 2
+    zh = _w_shr(z, w - 1, hz)
+    q = _w_mul(zh, mu, hz, hz, w + 1)
+    qh = _w_shr(q, w + 1, hq)       # q has no word w + 1: w + 1 digits
+    qp = _w_mul(qh, p, hq, h, hz)
+    zl = [z[k] if k < len(z) else 0 for k in range(hz)]
+    r, _ = _w_sub(zl, qp, hz)
+    _w_keep(r, w + 2)
+    for _ in range(2):
+        d, borrow = _w_sub(r, p, hz)
+        if not borrow:
+            r = d
+    return r
+
+
+def _w_digits(r, w):
+    """store_words<W>: the low w digits of the words r."""
+    return [(r[j // 2] >> (16 * (j % 2))) & MASK for j in range(w)]
+
+
+def _w_mul_mod(big, x, y):
+    """mul_mod_kernel<W> on one lane's digit lists."""
+    w = big.w
+    h = (w + 1) // 2
+    z = _w_mul(_w_pack(x, h), _w_pack(y, h), h, h, 2 * h)
+    return _w_digits(_w_barrett(w, z, _w_consts(big)), w)
+
+
+def _w_reduce_cols(big, col):
+    """reduce_cols_kernel<W> on one lane's column list."""
+    w = big.w
+    consts = _w_consts(big)
+    bs = consts[2]
+    S, ND, h = 2 * w - 1, 4 * w, (w + 1) // 2
+    m = min(len(col), ND)
+    hw = (min(m + 1, ND) - S + 1) // 2 if m + 1 > S else 0
+    z, carry = [], 0
+    for k in range(2 * w):
+        d = [0, 0]
+        for half in range(2):
+            j = 2 * k + half
+            if j < m:
+                s = col[j] + carry
+                d[half], carry = s & MASK, s >> 16
+            elif j == m:
+                d[half] = carry & MASK
+        z.append(d[0] | d[1] << 16)
+    hi = _w_shr(z, S, w + 1)        # z stops at digit S + 2w: 2w + 1 digits
+    f = [0] * (w + 1)
+    for row in range(w + 1):
+        if row < hw:
+            up = 0
+            for j in range(h):
+                if row + j > w:
+                    break
+                t = hi[row] * bs[j] + f[row + j] + up
+                assert t < 1 << 64
+                f[row + j], up = t & M32, t >> 32
+            if row + h <= w:
+                assert f[row + h] == 0
+                f[row + h] = up
+    zf, cy = [], 0
+    for k in range(w + 1):
+        lo = z[k] if k < w - 1 else z[k] & MASK if k == w - 1 else 0
+        t = lo + f[k] + cy
+        zf.append(t & M32)
+        cy = t >> 32
+    _w_keep(zf, 2 * w + 1)
+    return _w_digits(_w_barrett(w, zf, consts), w)
+
+
+def _w_corners(spec):
+    """The corner planes 0, 1, p - 1 and all-0xFFFF (>= p)."""
+    return [0, 1, spec.p - 1, (1 << (16 * spec.w)) - 1]
+
+
+@pytest.mark.parametrize("name", ALL_FIELDS)
+def test_kernel_words_mul_mod(name):
+    """Every pair of corner planes and a few random field elements."""
+    spec = ALL_FIELDS[name]
+    big = BigMul(spec)
+    corners = _w_corners(spec)
+    rng = random.Random(spec.w)
+    xs = [a for a in corners for _ in corners] + [rng.randrange(spec.p)
+                                                  for _ in range(3)]
+    ys = [b for _ in corners for b in corners] + [rng.randrange(1 << (16 * spec.w))
+                                                  for _ in range(3)]
+    x, y = _planes(spec, xs), _planes(spec, ys)
+    want = big.mul_mod_plain(x, y)
+    got = [_w_mul_mod(big, a, b) for a, b in zip(_lanes(x), _lanes(y))]
+    assert got == _lanes(want)
+    assert limb.digits_to_ints(want) == [a * b % spec.p for a, b in zip(xs, ys)]
+
+
+@pytest.mark.parametrize("name,m", [(n, m) for n in ALL_FIELDS
+                                    for m in ("8", "2w-1", "2w", "2w+1", "4w+3")])
+def test_kernel_words_reduce_cols(name, m):
+    """Columns all 0, all 0xFFFF, all 2^18 - 1, all 2^23 - 1 and two random
+    lanes below 2^23, at no fold (m = 8 below 2w - 1), the first fold
+    (2w - 1, 2w), BigLinMap's 2w + 1 and more columns than reach the kept
+    digits (4w + 3, where the truncation at B^(2w+1) leaves z' != z mod
+    B^(2w+1))."""
+    spec = ALL_FIELDS[name]
+    big, w = BigMul(spec), spec.w
+    m = {"8": 8, "2w-1": 2 * w - 1, "2w": 2 * w, "2w+1": 2 * w + 1,
+         "4w+3": 4 * w + 3}[m]
+    rng = np.random.default_rng(m)
+    cols = rng.integers(0, 1 << 23, (m, 6))
+    for k, v in enumerate((0, MASK, (1 << 18) - 1, (1 << 23) - 1)):
+        cols[:, k] = v
+    cols = torch.from_numpy(cols)
+    want = big.reduce_cols_plain(cols)
+    assert [_w_reduce_cols(big, c) for c in _lanes(cols)] == _lanes(want)
 
 
 def _k_add_mod(a, v, p):
@@ -452,3 +627,32 @@ def test_kernel_steps_limb(op, name):
     got = [_k_limb(op, x, y, z)
            for x, y, z in zip(_lanes(a), _lanes(b), _lanes(qs))]
     assert got == (want.tolist() if op == "geq" else _lanes(want))
+
+
+PTXAS_LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN4_GLOBAL__14mul_mod_kernelILi14EEEvNS_4ArgsENS_5WordsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN4_GLOBAL__14mul_mod_kernelILi14EEEvNS_4ArgsENS_5WordsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 46 registers, 1360 bytes cmem[0]
+ptxas info    : Function properties for _ZN4_GLOBAL__11mul_mod_farILi16EEEvRA16_KjS3_RKNS_6ConstsERA16_j
+    72 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Compiling entry function '_ZN4_GLOBAL__18reduce_cols_kernelILi55EEEvNS_4ArgsENS_6ConstsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN4_GLOBAL__18reduce_cols_kernelILi55EEEvNS_4ArgsENS_6ConstsE
+    912 bytes stack frame, 32 bytes spill stores, 32 bytes spill loads
+ptxas info    : Used 255 registers, 8 bytes lmem, 1024 bytes cmem[0]
+"""
+
+
+def test_parse_ptxas_reads_each_entry():
+    """The register log of chip_smoke.py: registers, stack frame, spills
+    and lmem of every entry function; out-of-line device functions are
+    not entries."""
+    got = backend.parse_ptxas(PTXAS_LOG)
+    assert got == {
+        "_ZN4_GLOBAL__14mul_mod_kernelILi14EEEvNS_4ArgsENS_5WordsE": dict(
+            registers=46, stack=0, spill_stores=0, spill_loads=0, lmem=0),
+        "_ZN4_GLOBAL__18reduce_cols_kernelILi55EEEvNS_4ArgsENS_6ConstsE": dict(
+            registers=255, stack=912, spill_stores=32, spill_loads=32, lmem=8),
+    }
+
