@@ -965,21 +965,6 @@ def gauss_launches() -> int:
 
 # -------------------------------------------------------- field-sample phase
 
-def commit_segments(params, ns):
-    """The uniform segments of a commit batch of polynomials of ``ns``
-    values (jindo/prover.py ``_meta``): per commitment its last row, its
-    mask column (the rows Prover._mask_rows keeps, slots values each) and
-    the two ChaCha20 keys."""
-    p = params
-    cs = p.cols * p.slots
-    segs = []
-    for n in ns:
-        rows = 2 + int(np.count_nonzero(np.arange(1, p.rows - 1) * cs <= n))
-        segs += [("field", cs - 1), ("field", rows * p.slots), ("bytes", 32),
-                 ("bytes", 32)]
-    return segs
-
-
 def host_segments(spec, u, segments):
     """The numpy host loop on the port's sampler ``u`` (the JAX package's
     sample_field_digits, ringo_tpu/jindo/prover.py:28-45, then
@@ -1010,8 +995,8 @@ def host_segments(spec, u, segments):
     return out
 
 
-FIELD_LAST_KEYS = ("launches", "exits", "rounds", "chunks", "used",
-                   "read_ahead")
+FIELD_LAST_KEYS = ("launches", "exits", "mid_segment_exits", "rounds",
+                   "chunks", "used", "read_ahead")
 
 
 def field_bound(spec, segments, used: int):
@@ -1027,15 +1012,21 @@ def field_phase(jindo, params, params_pk, errs: dict):
     ``draw_segments`` call): at the N = 2^19 commit's segments (last row,
     mask column, two keys), a PublicKey (13, ZP220) commitment's and a
     three-commit batch's, 40 one-lane segments (Buckler's blinds), ZP880
-    (w = 55) and the commit's segments through 16 KiB read-aheads (resumes),
-    each drawn on the card by the kernel, by its plain version on the card
-    (``field_sample_plain``) and by the numpy host loop on the CPU from the
-    same seed: every digit and byte equal, the three samplers' states
-    equal, the same launches, exits, rounds, chunks and bytes in kernel and
-    plain version, and one sync a launch.  Times the kernel (CUDA events,
-    relaunched from the call's first state on the same read-ahead) at the
-    commit's, a PublicKey commitment's, the batch's and the blinds'
-    segments beside its plain version and its bound."""
+    (w = 55), the commit's segments through 16 KiB read-aheads (resumes), a
+    segment of more candidates than the kernel's shared tile holds (its
+    flags in the scratch area), RAW segments that leave the next field
+    segment at odd alignments (ZP220), a 2,080-lane ZP220 segment through
+    8 KiB read-aheads (the kernel stops inside the segment and resumes from
+    its pending need list) and 20 31-lane ZP880 segments through
+    read-aheads of the 8 KiB buffer (the warp-only path stops inside
+    segments), each drawn on the card by the kernel, by its plain version
+    on the card (``field_sample_plain``) and by the numpy host loop on the
+    CPU from the same seed: every digit and byte equal, the three samplers'
+    states equal, the same launches, exits, rounds, chunks and bytes in
+    kernel and plain version, and one sync a launch.  Times the kernel (``time_field``)
+    at the commit's, a PublicKey commitment's, the batch's, the blinds',
+    ZP880's and the large segment's draws beside its plain version and its
+    bound."""
     import torch
 
     from ringo_tpu_torch import backend
@@ -1047,17 +1038,28 @@ def field_phase(jindo, params, params_pk, errs: dict):
     pk_rank = params_pk.rank
     cases = [
         (f"Jindo commit N=2^{LOG_N}", params.spec,
-         commit_segments(params, [params.rank]), None),
+         bench.commit_segments(params, [params.rank]), None),
         ("PublicKey (13, ZP220) commitment", ZP220,
-         commit_segments(params_pk, [pk_rank]), None),
+         bench.commit_segments(params_pk, [pk_rank]), None),
         ("PublicKey three-commit batch", ZP220,
-         commit_segments(params_pk, [pk_rank, pk_rank // 2, 1000]), None),
+         bench.commit_segments(params_pk, [pk_rank, pk_rank // 2, 1000]),
+         None),
         ("blinds (40 one-lane segments)", ZP220, [("field", 1)] * 40, None),
         ("ZP880", ZP880, [("field", 1), ("field", 2080), ("bytes", 32),
                           ("field", 127)], None),
         ("Jindo commit, 16 KiB read-aheads", params.spec,
-         commit_segments(params, [params.rank]), 1 << 14),
+         bench.commit_segments(params, [params.rank]), 1 << 14),
+        ("ZP255 segment past the shared tile", params.spec,
+         [("field", 20000), ("bytes", 64), ("field", 3000)], None),
+        ("ZP220 RAW segments at odd alignments", ZP220,
+         [("bytes", 3), ("field", 5000), ("bytes", 37), ("field", 3001),
+          ("bytes", 64), ("field", 1), ("field", 40)], None),
+        ("ZP220 2,080 lanes, 8 KiB read-aheads", ZP220,
+         [("field", 5), ("bytes", 64), ("field", 2080)], 1 << 13),
+        ("ZP880 20 31-lane segments, 8 KiB read-aheads", ZP880,
+         [("field", 31)] * 20, 100),
     ]
+    timed = (0, 1, 2, 3, 4, 6)
     slack, window = field_sample.SLACK, field_sample.WINDOW_SLACK
     run, draws, resumes = field_sample.field_sample, [], 0
     try:
@@ -1103,6 +1105,8 @@ def field_phase(jindo, params, params_pk, errs: dict):
                 raise AssertionError(f"{what}: {launches} launches, {syncs} syncs")
             if ahead is None and launches != 1:
                 raise AssertionError(f"{what}: {launches} launches, not one")
+            if ahead in (1 << 13, 100) and not k_last["mid_segment_exits"]:
+                raise AssertionError(f"{what}: no stop inside a segment")
             resumes += k_last["exits"]
             lanes = sum(n for kind, n in segs if kind == "field")
             draws.append(dict(label=label, w=spec.w, segments=len(segs),
@@ -1113,39 +1117,49 @@ def field_phase(jindo, params, params_pk, errs: dict):
                 f"host loop, samplers too; call {card_ms:.2f} ms on the host "
                 f"clock, {launches} launches ({k_last['exits']} exits), "
                 f"{syncs} syncs, {k_last['rounds']} rounds, "
-                f"{k_last['chunks']} chunks, bytes used / read ahead "
+                f"{k_last['chunks']} chunks, {k_last['mid_segment_exits']} "
+                f"stops inside a segment, bytes used / read ahead "
                 f"{k_last['used']} / {k_last['read_ahead']}")
     finally:
         field_sample.SLACK, field_sample.WINDOW_SLACK = slack, window
     if not resumes:
         raise AssertionError("field sample: no read-ahead-short resume driven")
     timings = []
-    for label, spec, segs, ahead in cases[:4]:
-        ms, plain_ms, used, rounds = time_field(field_sample, label, spec, segs)
-        b, by = field_bound(spec, segs, used)
-        timings.append(dict(label=label, ms=ms, plain_ms=plain_ms, used=used,
-                            rounds=rounds, bound_ms=b, bound_by=by))
-        log(f"field sample kernel, {label}: {ms:.4f} ms a call, {rounds} "
-            f"rounds ({1e3 * ms / rounds:.2f} us a round), bound "
-            f"{1e3 * b:.3f} us ({by}: {used} stream bytes and the outputs), "
-            f"share {b / ms:.5f}; field_sample_plain on the card "
-            f"{plain_ms:.3f} ms")
+    for k in timed:
+        label, spec, segs, _ = cases[k]
+        t = time_field(field_sample, label, spec, segs)
+        b, by = field_bound(spec, segs, t["used"])
+        timings.append(dict(label=label, **t, bound_ms=b, bound_by=by))
+        log(f"field sample kernel, {label}: through the wrapper "
+            f"{t['ms']:.4f} ms a call; C entry {t['device_ms']:.4f} ms back "
+            f"to back, {t['cold_ms']:.4f} ms cold; {t['rounds']} rounds, "
+            f"bound {1e3 * b:.3f} us ({by}: {t['used']} stream bytes and the "
+            f"outputs), share of the cold time {b / t['cold_ms']:.5f}; "
+            f"field_sample_plain on the card {t['plain_ms']:.3f} ms")
     t = timings[0]
     return dict(name="field_sample", route="cuda",
                 source="ringo_tpu_torch/csrc/field_sample.cu",
                 replaces="ringo_tpu/jindo/prover.py:28",
-                ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                ms=t["ms"], device_ms=t["device_ms"], cold_ms=t["cold_ms"],
+                plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
                 bound_by=t["bound_by"], library_ms=None, timings=timings,
                 draws=draws, shape=f"a commit's draws, {cases[0][0]}",
                 kernel="field")
 
 
-def time_field(field_sample, label: str, spec, segs):
-    """(kernel ms, plain version ms, stream bytes used, rounds) of one
-    draw, each relaunched from the call's first state on the same
-    read-ahead (CUDA events)."""
+def time_field(field_sample, label: str, spec, segs) -> dict:
+    """One draw's times, each relaunched from the call's first state on
+    the same read-ahead: the wrapper ``field_sample_cuda`` by CUDA events
+    over back-to-back calls (``ms``, as every kernel row is timed; it packs
+    its numpy arguments, makes the ctypes call and copies the state to
+    pinned memory a call); the C entry ``ringo_field_sample`` with its
+    arguments prepared once (``field_sample.launch_args``), back to back
+    (``device_ms``) and one call at a time after a 128 MB read that leaves
+    none of its bytes in L2 (``cold_ms``); the plain version
+    (``plain_ms``).  With the bytes used and the rounds."""
     import torch
 
+    from ringo_tpu_torch import backend
     from ringo_tpu_torch.csprng.uniform import UniformSampler
 
     D = field_sample._Draw(spec, UniformSampler(
@@ -1163,14 +1177,29 @@ def time_field(field_sample, label: str, spec, segs):
     if st[field_sample.S_STATUS] != field_sample.DONE:
         raise AssertionError(f"field sample {label}: the timed call exited")
     out, raw = D.out.clone(), D.raw.clone()
+    D.st[:] = st0
+    args = field_sample.launch_args(D)
+    entry, stream = backend.lib().ringo_field_sample, backend.stream_ptr(D.out)
+
+    def call():
+        backend.check(entry(args.ctypes.data, stream), "field_sample")
+
+    device_ms = bench.time_ms(call, reps=50, windows=5)
+    cold = bench.cold_ms(call)
+    torch.cuda.synchronize()
+    if not np.array_equal(D.st_dev.cpu().numpy(), st):
+        raise AssertionError(f"field sample {label}: the C entry's state differs")
+    max_abs_err(out, D.out, f"field sample {label} (C entry)")
+    max_abs_err(raw, D.raw, f"field sample {label} (C entry bytes)")
     plain_ms = bench.time_ms(lambda: run(field_sample.field_sample_plain),
                              reps=1)
     if not np.array_equal(D.st, st):
         raise AssertionError(f"field sample {label}: timed states differ")
     max_abs_err(out, D.out, f"field sample {label} (timed)")
     max_abs_err(raw, D.raw, f"field sample {label} (timed bytes)")
-    return ms, plain_ms, int(st[field_sample.S_OFF]), int(
-        st[field_sample.S_ROUNDS])
+    return dict(ms=ms, device_ms=device_ms, cold_ms=cold, plain_ms=plain_ms,
+                used=int(st[field_sample.S_OFF]),
+                rounds=int(st[field_sample.S_ROUNDS]))
 
 
 # ----------------------------------------------------------- big-field phase
@@ -1272,10 +1301,10 @@ def bigfield_phase(errs: dict):
     widths, with the corner values 0, 1, p - 1 (and the all-0xFFFF plane
     where the plain version takes values >= p: all but the tree sum),
     broadcast and sliced operands, and ``reduce_cols`` at every column
-    count that changes its path (the mul_mod and reduce_cols kernels'
-    ptxas registers, stack frame and spills logged a width, none in local
-    memory at w <= 28); horner and powers at every kind of
-    point, n = 1, a sliced vs, several blocks and t = 43; then at the
+    count that changes its path (the mul_mod, reduce_cols, horner and
+    powers kernels' ptxas registers, stack frame and spills logged a
+    width, none in local memory at w <= 28); horner and powers at every
+    kind of point, n = 1, a sliced vs, several blocks and t = 43; then at the
     cells' shapes: the Jindo evaluate's horner and the verifier's tree sum
     at [16, 1, 2^19], the PublicKey ring's horner, powers and tree sum at
     [14, t, 2^15], ``reduce_cols`` at ``BigLinMap``'s column counts and
@@ -1373,7 +1402,8 @@ def bigfield_phase(errs: dict):
         log(f"bigfield {name} (w = {w}): mul_mod, reduce_cols, tree_sum, add, "
             "sub, neg, geq, horner, powers equal to plain (corner values, "
             "broadcast, sliced)")
-        for kind in ("mul_mod_kernel", "reduce_cols_kernel"):
+        for kind in ("mul_mod_kernel", "reduce_cols_kernel", "horner_kernel",
+                     "powers_kernel"):
             u = kernel_usage(kind, w)
             log(f"bigfield {kind}<{w}>: {u['registers']} registers, "
                 f"{u['stack']} bytes stack frame (local memory), "
@@ -2544,7 +2574,10 @@ def main() -> int:
             par_rec["launches"], par_rec["buckler"]["launches"]))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    table = {"kernels": [{k: r[k] for k in keys} for r in rows]}
+    # the C entry's device times beside the wrapper reading, where timed
+    extra = ("device_ms", "cold_ms")
+    table = {"kernels": [{k: r[k] for k in keys + extra if k in r}
+                         for r in rows]}
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=smi, kernels=rows, slice=slice_rec,

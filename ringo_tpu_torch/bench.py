@@ -169,6 +169,39 @@ def time_ms(fn, reps: int = 10, windows: int = 3) -> float:
     return statistics.median(out)
 
 
+def cold_ms(fn, reps: int = 30) -> float:
+    """Median CUDA-event time of one call at a time, each after a read of
+    a 128 MB buffer that leaves none of the call's operands in L2."""
+    flush = torch.ones(1 << 25, dtype=torch.float32, device="cuda")
+    return _one_call_ms(fn, flush.sum, reps)
+
+
+def warm_ms(fn, reps: int = 30) -> float:
+    """As ``cold_ms``, with a wait on the card of about the read's length
+    in its place (``torch.cuda._sleep``, 10^5 clock cycles) that touches
+    no memory: the operands the last call left in L2 stay there, and the
+    host has queued the call before the card reaches it, as after the
+    read."""
+    return _one_call_ms(fn, lambda: torch.cuda._sleep(100_000), reps)
+
+
+def _one_call_ms(fn, before, reps: int) -> float:
+    """Median CUDA-event time of ``fn``, one call at a time, each queued
+    behind ``before()``."""
+    fn()
+    out = []
+    for _ in range(reps):
+        before()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        out.append(a.elapsed_time(b))
+    return statistics.median(out)
+
+
 def stats(xs) -> dict:
     """Median, quartiles and count of the samples ``xs``."""
     p25, med, p75 = np.percentile(np.asarray(xs, dtype=np.float64),
@@ -263,6 +296,22 @@ def commit_batches(ctx) -> list[int]:
     ts = [ctx.w_cnt - second, second + lin + sumc,
           int(ctx.has_arithmetic_check()) + 3 * lin + 3 * sumc]
     return [t for t in ts if t]
+
+
+def commit_segments(params, ns) -> list:
+    """The uniform segments (``csprng/field_sample.py`` ``draw_segments``)
+    of a commit batch of polynomials of ``ns`` values (jindo/prover.py
+    ``_meta``): per commitment its last row, its mask column (the rows
+    Prover._mask_rows keeps, slots values each) and the two ChaCha20
+    keys."""
+    p = params
+    cs = p.cols * p.slots
+    segs = []
+    for n in ns:
+        rows = 2 + int(np.count_nonzero(np.arange(1, p.rows - 1) * cs <= n))
+        segs += [("field", cs - 1), ("field", rows * p.slots), ("bytes", 32),
+                 ("bytes", 32)]
+    return segs
 
 
 def _fold(checks: dict, new: dict) -> None:

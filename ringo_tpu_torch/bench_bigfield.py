@@ -19,15 +19,20 @@ subprocess, in turns: earlier, this, this, earlier.
 
 --kernels: csrc/bigfield.cu built alone into a library per variant (this
 source, and with --earlier DIR that checkout's), each variant's
-registers, stack and spills from ptxas, its mul_mod at [16, 2^19] (ZP255)
-and [14, 4, 2^15] x [14, 1, 2^15] (ZP220, the Buckler ring) and
-reduce_cols at [29, 32, 2048] (ZP220, BigLinMap's 2w + 1 columns) held
-exactly against the plain versions, then timed in turns (the variants in
-order, then reversed) by CUDA events around calls of the C entry point
+registers, stack and spills from ptxas (the mul_mod, reduce_cols, horner
+and powers kernels at every width), its mul_mod at [16, 2^19] (ZP255)
+and [14, 4, 2^15] x [14, 1, 2^15] (ZP220, the Buckler ring), reduce_cols
+at [29, 32, 2048] (ZP220, BigLinMap's 2w + 1 columns), HORNER at [16, 1,
+2^19] (the Jindo evaluate) and [14, 4, 2^15] and POWERS at [14, 2^15]
+(the PublicKey prove and verify) held exactly against the plain
+versions, then timed in turns (the variants in order, then reversed) by
+CUDA events around calls of the C entry point
 (no wrapper): over back-to-back calls (``event_ms``, ``bench.time_ms``
 with 50 calls a window: the operands stay in the 50 MB L2 between calls
 where they fit) and one call at a time after
-reading a 128 MB buffer (``cold_ms``: operands in device memory); beside
+reading a 128 MB buffer (``bench.cold_ms``: operands in device memory) or
+after a wait on the card that reads nothing (``bench.warm_ms``: operands
+left in L2 by the last call, where they fit); beside
 them the shipped wrapper's time by ``bench.time_ms``, which chip_smoke.py
 reports (its host cost a call bounds it where the kernel is shorter).
 
@@ -42,7 +47,6 @@ import argparse
 import ctypes
 import json
 import os
-import statistics
 import subprocess
 import sys
 import threading
@@ -129,15 +133,20 @@ def wrapper_costs(root: str) -> dict:
     return rec
 
 
-def build_variants(variants) -> list:
-    """[(name, source)] -> [(name, ctypes entry, ptxas usage of the
-    mul_mod and reduce_cols kernels)]: one nvcc each, all at once."""
+BIGFIELD_KERNELS = ("mul_mod", "reduce_cols", "horner", "powers")
+
+
+def build_variants(variants, entry: str = "ringo_bigfield",
+                   kernels=BIGFIELD_KERNELS) -> list:
+    """[(name, source)] -> [(name, ctypes function ``entry``, ptxas usage
+    of the ``<kind>_kernel``s of ``kernels``)]: one nvcc each, all at
+    once."""
     from . import backend
 
     os.makedirs(backend.BUILD_DIR, exist_ok=True)
     procs = []
     for k, (name, src) in enumerate(variants):
-        so = os.path.join(backend.BUILD_DIR, f"bigfield_variant{k}.so")
+        so = os.path.join(backend.BUILD_DIR, f"{entry}_variant{k}.so")
         procs.append((name, so, subprocess.Popen(
             [backend._nvcc(), *backend.NVCC_FLAGS, "-Xptxas", "-v",
              "-shared", src, "-o", so],
@@ -148,40 +157,22 @@ def build_variants(variants) -> list:
         if pr.returncode != 0:
             raise RuntimeError(f"nvcc of variant {name} failed:\n{text}")
         usage = {k: v for k, v in backend.parse_ptxas(text).items()
-                 if "mul_mod_kernel" in k or "reduce_cols_kernel" in k}
-        fn = ctypes.CDLL(so).ringo_bigfield
-        fn.argtypes = [backend._CT[c] for c in backend._SIGNATURES["ringo_bigfield"]]
+                 if any(f"{kind}_kernel" in k for kind in kernels)}
+        fn = getattr(ctypes.CDLL(so), entry)
+        fn.argtypes = [backend._CT[c] for c in backend._SIGNATURES[entry]]
         fn.restype = ctypes.c_int
         out.append((name, fn, usage))
     return out
 
 
-def cold_ms(fn, reps: int = 30) -> float:
-    """Median CUDA-event time of one call at a time, each after a read of
-    a 128 MB buffer that leaves none of the call's operands in L2."""
-    import torch
-
-    flush = torch.ones(1 << 25, dtype=torch.float32, device="cuda")
-    fn()
-    out = []
-    for _ in range(reps):
-        flush.sum()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        out.append(a.elapsed_time(b))
-    return statistics.median(out)
-
-
 def kernel_cases():
     """(label, BigMul, op, operands, m, wrapper call, plain version) at
-    the shapes the main paths give mul_mod and reduce_cols."""
+    the shapes the main paths give mul_mod, reduce_cols, HORNER (m: the
+    coefficients) and POWERS (m: the powers)."""
     import torch
 
     from .fields import ZP220, ZP255, bigfield
+    from .ops import horner
     from .ops.bigmul import BigMul
 
     gen = torch.Generator().manual_seed(15)
@@ -196,6 +187,11 @@ def kernel_cases():
     v, P = planes(ZP220, (4, 1 << 15)), planes(ZP220, (1 << 15,))[:, None, :]
     cols = torch.randint(0, 1 << 18, (2 * ZP220.w + 1, 32, 2048),
                          generator=gen).to("cuda")
+    h255, h220 = horner.HornerPlan(ZP255), horner.HornerPlan(ZP220)
+    pt = 0x1234567890ABCDEF1234567890ABCDEF
+    s255 = h255.steps_for(pt % ZP255.p, 1 << 19).to("cuda")
+    s220 = h220.steps_for(pt % ZP220.p, 1 << 15).to("cuda")
+    xv = x[:, None, :]
     return [
         ("mul_mod ZP255 [16, 2^19]", b255, bigfield.MUL_MOD, (x, y), 0,
          lambda: b255.mul_mod(x, y), lambda: b255.mul_mod_plain(x, y)),
@@ -204,6 +200,15 @@ def kernel_cases():
         ("reduce_cols ZP220 [29, 32, 2048]", b220, bigfield.REDUCE_COLS, (cols,),
          cols.shape[0], lambda: b220.reduce_cols(cols),
          lambda: b220.reduce_cols_plain(cols)),
+        ("HORNER ZP255 [16, 1, 2^19]", b255, bigfield.HORNER, (xv, s255),
+         1 << 19, lambda: h255.eval_stacked(xv, s255),
+         lambda: h255.eval_stacked_plain(xv, s255)),
+        ("HORNER ZP220 [14, 4, 2^15]", b220, bigfield.HORNER, (v, s220),
+         1 << 15, lambda: h220.eval_stacked(v, s220),
+         lambda: h220.eval_stacked_plain(v, s220)),
+        ("POWERS ZP220 [14, 2^15]", b220, bigfield.POWERS, (s220,), 1 << 15,
+         lambda: bigfield.powers_cuda(b220, s220, 1 << 15),
+         lambda: h220.powers_plain(s220, 1 << 15)),
     ]
 
 
@@ -231,13 +236,14 @@ def kernel_times(args, here: str, rec: dict) -> None:
     rec["kernels"] = []
     for label, big, op, ts, m, wrapped, plain in kernel_cases():
         want = plain()
-        _, n, hdr = bigfield.pack(big.w, ts, m=m)
+        n = want[0].numel()
+        hdr, ptrs, scratch, count = bigfield.launch_args(big, op, ts, m)
         out = torch.empty_like(want)
-        ptrs = [t.data_ptr() for t in ts] + [0] * (3 - len(ts))
 
         def call(fn):
             backend.check(fn(op, hdr.ctypes.data, big.consts_addr,
-                             out.data_ptr(), *ptrs, 0, 0, stream), label)
+                             out.data_ptr(), *ptrs, scratch, count, stream),
+                          label)
 
         for name, fn, _ in built:
             out.zero_()
@@ -249,11 +255,14 @@ def kernel_times(args, here: str, rec: dict) -> None:
                                      f"the plain version in {bad} of {n} lanes")
         times: dict = {name: [] for name, _, _ in built}
         cold: dict = {name: [] for name, _, _ in built}
+        warm: dict = {name: [] for name, _, _ in built}
         for name, fn, _ in built + built[::-1]:
             times[name].append(bench.time_ms(lambda: call(fn), reps=50,
                                              windows=5))
-            cold[name].append(cold_ms(lambda: call(fn)))
+            cold[name].append(bench.cold_ms(lambda: call(fn)))
+            warm[name].append(bench.warm_ms(lambda: call(fn)))
         row = dict(label=label, lanes=n, event_ms=times, cold_ms=cold,
+                   warm_ms=warm,
                    wrapper_time_ms=bench.time_ms(wrapped))
         rec["kernels"].append(row)
         print(json.dumps(row), flush=True)

@@ -23,7 +23,8 @@ Every call follows one protocol on the card and on the CPU
 ``SYNCS``), and when the read-ahead ran short (status WANT) commit the
 bytes used, read further ahead and run again from that state; at the end
 ``commit`` the bytes used.  The results stay on the sampler's device.
-``LAST`` holds the last call's launches, exits, rounds, chunks and bytes;
+``LAST`` holds the last call's launches, exits (``mid_segment_exits``: those
+inside a field segment after a round of it), rounds, chunks and bytes;
 ``CALLS`` and ``EXITS`` count calls and exits.
 """
 
@@ -44,10 +45,11 @@ DONE, WANT = 0, 1            # statuses: done, read-ahead short
 MAX_W = 64                   # digits the kernel takes (ZP880 has 55)
 # slots of the kernel's int64 arguments (csrc/field_sample.cu A_*)
 (A_OUT, A_STRIDE, A_RAW, A_WIN, A_START, A_AVAIL, A_NEED, A_NMAX, A_SEGS,
- A_NSEG, A_W, A_TOP_MASK, A_ST_OUT, A_P) = range(14)
+ A_NSEG, A_W, A_TOP_MASK, A_ST_OUT, A_SCRATCH, A_SCRATCH_CAP, A_P) = range(16)
 A_ST = A_P + MAX_W
 A_LEN = A_ST + S_LEN
-THREADS = 1024               # candidates a chunk of the kernel's block
+THREADS = 1024               # candidates a chunk of the host loop (S_CHUNKS)
+CLUSTER = 8                  # blocks of the kernel's launch (one cluster)
 # a read-ahead holds the expected stream bytes of what is left to draw
 # (2w bytes a candidate over the acceptance p / 2^bits) times SLACK, plus
 # WINDOW_SLACK bytes
@@ -64,7 +66,9 @@ class _Draw:
     kind, count, output base), the outputs (``out`` int64 [w, field
     lanes], ``raw`` uint8 [raw bytes]), the ping-pong need list (int32
     [2, nmax]), the read-ahead ``win`` and ``st``, the state (numpy int64
-    [S_LEN]) that the kernel or its plain version advances."""
+    [S_LEN]) that the kernel or its plain version advances; on the card
+    ``scratch``, the kernel's int32 area for reject flags past its shared
+    tile (``launch_args``)."""
 
     def __init__(self, spec, sampler, segments):
         self.spec, self.smp = spec, sampler
@@ -95,6 +99,7 @@ class _Draw:
         self.win = None
         self.used = self.ahead = 0
         self.pd = self.segs_dev = self.st_dev = self.st_pin = None   # lazily
+        self.scratch = None
 
     def budget(self) -> int:
         """Bytes to read ahead for what is left from the state on."""
@@ -136,7 +141,7 @@ def draw_segments(spec, sampler, segments) -> list:
     if not D.work:
         return D.results()
     CALLS += 1
-    launches = exits = 0
+    launches = exits = mid = 0
     D.open(D.budget())
     while True:
         field_sample(D)
@@ -149,6 +154,7 @@ def draw_segments(spec, sampler, segments) -> list:
             break
         exits += 1
         EXITS += 1
+        mid += int(D.st[S_M]) > 0 and not int(D.st[S_FRESH])
         want = int(D.st[S_WANT])
         D.take()
         D.open(want + D.budget())
@@ -156,6 +162,7 @@ def draw_segments(spec, sampler, segments) -> list:
     LAST.clear()
     LAST.update(segments=len(segments), lanes=D.out.shape[1],
                 raw=D.raw.numel(), launches=launches, exits=exits,
+                mid_segment_exits=mid,
                 rounds=int(D.st[S_ROUNDS]), chunks=int(D.st[S_CHUNKS]),
                 used=D.used, read_ahead=D.ahead)
     return D.results()
@@ -232,13 +239,33 @@ def field_sample_cuda(D: _Draw) -> None:
     ``ringo_field_sample``) over D's tensors on one card, from the state
     ``D.st``; the state it ends in is copied to a pinned host buffer
     (``D.st_pin``) that the caller reads after a sync."""
-    ext, start, avail = D.win
+    ext = D.win[0]
     ts = dict(out=(D.out, torch.int64), raw=(D.raw, torch.uint8),
               need=(D.need, torch.int32), read_ahead=(ext, torch.uint8))
     for name, (t, dt) in ts.items():
         backend.require(t, dt, name=name)
         if not t.is_cuda or t.device != ext.device:
             raise ValueError(f"field_sample: {name} is not on the call's card")
+    a = launch_args(D)
+    err = backend.lib().ringo_field_sample(a.ctypes.data,
+                                           backend.stream_ptr(D.out))
+    backend.check(err, "field_sample")
+    backend.LAUNCHES["field"] += 1
+    D.st_pin.copy_(D.st_dev, non_blocking=True)
+
+
+def scratch_ints(cap: int) -> int:
+    """int32 elements of the kernel's scratch area for ``cap`` candidates:
+    a block's reject bits of two segments, counts and rejects, kCluster
+    blocks."""
+    return CLUSTER * (3 * (cap // 32) + cap)
+
+
+def launch_args(D: _Draw) -> np.ndarray:
+    """The kernel's int64 arguments (A_*) for a launch from ``D.st`` on D's
+    card tensors: pointers, sizes, p's digits, the scratch area (allocated
+    or grown here) and the state."""
+    ext, start, avail = D.win
     w = D.spec.w
     if not 0 < w <= MAX_W:
         raise ValueError(f"field_sample: {w} digits (at most {MAX_W})")
@@ -257,10 +284,12 @@ def field_sample_cuda(D: _Draw) -> None:
     a[A_SEGS], a[A_NSEG] = D.segs_dev.data_ptr(), len(D.tab)
     a[A_W], a[A_TOP_MASK] = w, D.top_mask
     a[A_ST_OUT] = D.st_dev.data_ptr()
+    # the kernel's flags past its shared tile, an area a block: every
+    # readable candidate
+    cap = (avail // (2 * w) + 63) // 32 * 32
+    if D.scratch is None or D.scratch.numel() < scratch_ints(cap):
+        D.scratch = torch.empty(scratch_ints(cap), dtype=torch.int32, device=dev)
+    a[A_SCRATCH], a[A_SCRATCH_CAP] = D.scratch.data_ptr(), cap
     a[A_P:A_P + w] = D.spec.p_digits
     a[A_ST:] = D.st
-    err = backend.lib().ringo_field_sample(a.ctypes.data,
-                                           backend.stream_ptr(D.out))
-    backend.check(err, "field_sample")
-    backend.LAUNCHES["field"] += 1
-    D.st_pin.copy_(D.st_dev, non_blocking=True)
+    return a

@@ -17,17 +17,19 @@
 // contiguous [w, n].  The field's constants (p, mu = floor(B^(2w) / p)
 // and B^(2w-1) mod p) travel by value in the launch's parameters.
 //
-// mul_mod and reduce_cols: each thread computes the plain version's
-// integers for one lane on 32-bit words (word k holds digits 2k and
-// 2k + 1): the product x * y, the fold of reduce_cols above B^(2w-1),
-// then HAC 14.42 Barrett with the plain version's mu = floor(B^(2w) / p):
-// q_hat = floor(floor(z / B^(w-1)) * mu / B^(w+1)) mod B^(w+1), r = (z -
-// q_hat * p) mod B^(w+2), two conditional subtractions of p on w + 2
-// digits.  Shifts by an odd digit count are funnel shifts, and every
-// truncation is the plain version's, at its digit, so any input the plain
-// version takes (digit planes >= p, m = 4w + 3 columns of up to 2^23) gives
-// the same digits (section below).  Templated on w for the seven fields
-// (7, 8, 14, 15, 16, 28, 55): fully unrolled, the words in registers.
+// One Barrett product serves every kernel that multiplies: each thread
+// computes the plain version's integers for one lane on 32-bit words (word
+// k holds digits 2k and 2k + 1; a w-digit value takes ceil(w / 2) words):
+// the product (mul_words), for reduce_cols the fold above B^(2w-1), for
+// Horner's step the addend in the low words, then HAC 14.42 Barrett
+// (barrett_words) with the plain version's mu = floor(B^(2w) / p): q_hat =
+// floor(floor(z / B^(w-1)) * mu / B^(w+1)) mod B^(w+1), r = (z - q_hat *
+// p) mod B^(w+2), two conditional subtractions of p on w + 2 digits.
+// Shifts by an odd digit count are funnel shifts, and every truncation is
+// the plain version's, at its digit, so any input the plain version takes
+// (digit planes >= p, m = 4w + 3 columns of up to 2^23) gives the same
+// digits (section below).  Templated on w for the seven fields (7, 8, 14,
+// 15, 16, 28, 55): fully unrolled, the words in registers.
 // add, sub, neg, geq: one thread per lane, the plain version's carry and
 // borrow chains in int64 over a digit count given at run time, inputs read
 // twice (the first pass decides the selection, the second writes), q read
@@ -43,8 +45,9 @@
 // plane and no product plane goes to device memory (section below).
 // powers: x^0 .. x^(n-1) from the same tables, one product an element.
 // Modular arithmetic on values below p is exact and associative, and
-// barrett<W> reduces any x * y + a < B^(2w), so the digits equal the plain
-// composition's (powers by doubling, products, tree sum) for any order.
+// barrett_words reduces any x * y + a < B^(2w), so the digits equal the
+// plain composition's (powers by doubling, products, tree sum) for any
+// order.
 //
 // What bounds it on the H100.  mul_mod at [16, 2^19] reads two int64
 // planes and writes one (201 MB, 0.060 ms at 3.35 TB/s) against 189 word
@@ -52,8 +55,9 @@
 // bytes, as for reduce_cols at BigLinMap's 2w + 1 columns.  The
 // tree sum of [16, 1, 2^19] reads 67 MB (0.020 ms): bytes.  horner at
 // [16, 1, 2^19] reads the same 67 MB and does 2^19 multiply-adds mod p,
-// 189 word products each (0.012 ms at the integer rate): bytes too, as
-// for powers; its 16-bit products (~750 multiply-adds each) take longer.
+// 189 word products each (0.012 ms at the integer rate): bytes too.
+// powers at [14, 2^15] writes 3.7 MB (0.0011 ms) after its tables: a
+// chain of products a lane and the launch set its time.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -62,10 +66,6 @@ namespace {
 
 constexpr int kMaxW = 55;
 constexpr int kMaxWords = (kMaxW + 3) / 2;   // words of w + 2 digits
-// above this width the Horner and powers kernels' 16-bit column loops stay
-// loops (their digits then live in local memory): fully unrolled, w = 55
-// took ptxas 20 s for one product
-constexpr int kUnrollW = 32;
 constexpr long long kMask = 0xFFFF;
 
 // op codes and header slots: ringo_tpu_torch/fields/bigfield.py
@@ -105,7 +105,7 @@ struct Consts {
   uint32_t bs[kMaxW];      // B^(2w-1) mod p
 };
 
-// the same constants on 32-bit words (mul_mod, reduce_cols), zero above
+// the same constants on 32-bit words (the products), zero above
 struct Words {
   uint32_t p[kMaxWords];   // p (w + 2 digits)
   uint32_t mu[kMaxWords];  // mu (w + 2 digits)
@@ -127,128 +127,6 @@ __device__ __forceinline__ void lane_offsets(const Args& a, unsigned i,
     const long long* s = a.op[k].stride;
     off[k] = i0 * s[0] + i1 * s[1] + i2 * s[2] + i3 * s[3];
   }
-}
-
-// The Horner and powers kernels' product on 16-bit digits.
-//
-// r = z mod p for the 2W+1 digits of z (HAC 14.42, the plain version's
-// _barrett step for step); r has W+2 digits, the low W are the result.
-template <int W>
-__device__ __forceinline__ void barrett(const uint32_t (&z)[2 * W + 1],
-                                        const Consts& c, uint32_t (&r)[W + 2]) {
-  // q_hat: digits W+1 .. 2W+1 of zh * mu, zh = z[W-1 .. 2W]
-  uint32_t qh[W + 1];
-  uint64_t acc = 0;
-#pragma unroll (W > kUnrollW ? 1 : 2 * W + 2)
-  for (int col = 0; col <= 2 * W + 1; ++col) {
-#pragma unroll
-    for (int i = 0; i < W + 2; ++i) {
-      const int j = col - i;
-      if (j >= 0 && j < W + 2) acc += (uint64_t)z[W - 1 + i] * c.mu[j];
-    }
-    if (col >= W + 1) qh[col - W - 1] = (uint32_t)(acc & kMask);
-    acc >>= 16;
-  }
-  // r = (z - q_hat * p) mod B^(W+2)
-  acc = 0;
-  int borrow = 0;
-#pragma unroll (W > kUnrollW ? 1 : W + 2)
-  for (int col = 0; col < W + 2; ++col) {
-#pragma unroll
-    for (int i = 0; i < W + 1; ++i) {
-      const int j = col - i;
-      if (j >= 0 && j < W) acc += (uint64_t)qh[i] * c.p[j];
-    }
-    const int s = (int)z[col] - (int)(acc & kMask) - borrow;
-    acc >>= 16;
-    r[col] = (uint32_t)s & kMask;
-    borrow = s < 0;
-  }
-  // two conditional subtractions of p (W+2 digits)
-#pragma unroll
-  for (int rep = 0; rep < 2; ++rep) {
-    uint32_t d[W + 2];
-    borrow = 0;
-#pragma unroll
-    for (int j = 0; j < W + 2; ++j) {
-      const int s = (int)r[j] - (int)c.p[j] - borrow;
-      d[j] = (uint32_t)s & kMask;
-      borrow = s < 0;
-    }
-    if (!borrow) {
-#pragma unroll
-      for (int j = 0; j < W + 2; ++j) r[j] = d[j];
-    }
-  }
-}
-
-// r = (x * y + a) mod p (a only where ADD) for x * y + a < B^(2W): the
-// product's 2W column sums (32-bit products in a 64-bit accumulator that
-// ripples one digit a column, a added into the low W columns), then
-// barrett<W>.  r may alias x, y or a: all are read before r is written.
-template <int W, bool ADD>
-__device__ __forceinline__ void mul_add_mod(const uint32_t (&x)[W],
-                                            const uint32_t (&y)[W],
-                                            const uint32_t (&a)[W],
-                                            const Consts& c, uint32_t (&r)[W]) {
-  uint32_t z[2 * W + 1];
-  uint64_t acc = 0;
-#pragma unroll (W > kUnrollW ? 1 : 2 * W)
-  for (int col = 0; col < 2 * W; ++col) {
-    if (ADD && col < W) acc += a[col];
-#pragma unroll
-    for (int k = 0; k < W; ++k) {
-      const int j = col - k;
-      if (j >= 0 && j < W) acc += (uint64_t)x[k] * y[j];
-    }
-    z[col] = (uint32_t)(acc & kMask);
-    acc >>= 16;
-  }
-  z[2 * W] = (uint32_t)(acc & kMask);
-  uint32_t t[W + 2];
-  barrett<W>(z, c, t);
-#pragma unroll
-  for (int j = 0; j < W; ++j) r[j] = t[j];
-}
-
-template <int W>
-__device__ __forceinline__ void mul_mod(const uint32_t (&x)[W],
-                                        const uint32_t (&y)[W],
-                                        const Consts& c, uint32_t (&r)[W]) {
-  mul_add_mod<W, false>(x, y, y, c, r);
-}
-
-// the same products out of line, for the Horner and powers kernels: nvcc
-// 12.8's front end crashed (a segmentation fault) on horner<28> and
-// powers<16> with the unrolled product inlined in their coefficient
-// loops; out of line, each kernel holds one copy of it.  c lies in shared
-// memory, the arrays in local memory.
-template <int W>
-__device__ __noinline__ void mul_mod_far(const uint32_t (&x)[W],
-                                         const uint32_t (&y)[W],
-                                         const Consts& c, uint32_t (&r)[W]) {
-  mul_mod<W>(x, y, c, r);
-}
-
-
-// the W digits at x (digit stride ds)
-template <int W>
-__device__ __forceinline__ void load_coeff(const long long* x, long long ds,
-                                           uint32_t (&v)[W]) {
-#pragma unroll
-  for (int j = 0; j < W; ++j) v[j] = (uint32_t)x[j * ds];
-}
-
-// acc = (acc * u + v) mod p, v's digits read at x (digit stride ds): the
-// Horner step, out of line as mul_mod_far
-template <int W>
-__device__ __noinline__ void horner_step(uint32_t (&acc)[W],
-                                         const uint32_t (&u)[W],
-                                         const long long* x, long long ds,
-                                         const Consts& c) {
-  uint32_t v[W];
-  load_coeff<W>(x, ds, v);
-  mul_add_mod<W, true>(acc, u, v, c, acc);
 }
 
 // ------------------------------------------- mul_mod and reduce_cols on words
@@ -381,13 +259,13 @@ __device__ __forceinline__ void barrett_words(const uint32_t (&z)[NZ],
   }
 }
 
-// the W digits of operand o at element offset off, packed into words: the
-// low 32-bit word of each int64 digit (< 2^16), two digits a word
+// the W digits at x (digit stride dstride), packed into words: the low
+// 32-bit word of each int64 digit (< 2^16), two digits a word
 template <int W>
-__device__ __forceinline__ void load_words(const Operand& o, long long off,
+__device__ __forceinline__ void load_words(const long long* x, long long dstride,
                                            uint32_t (&v)[(W + 1) / 2]) {
-  const uint32_t* p = reinterpret_cast<const uint32_t*>(o.ptr + off);
-  const long long ds = 2 * o.dstride;
+  const uint32_t* p = reinterpret_cast<const uint32_t*>(x);
+  const long long ds = 2 * dstride;
 #pragma unroll
   for (int k = 0; k < (W + 1) / 2; ++k) {
     const uint32_t lo = __ldg(p + (2 * k) * ds);
@@ -417,8 +295,8 @@ mul_mod_kernel(const Args a, const Words c) {
   long long off[2];
   lane_offsets<2>(a, i, off);
   uint32_t x[H], y[H];
-  load_words<W>(a.op[0], off[0], x);
-  load_words<W>(a.op[1], off[1], y);
+  load_words<W>(a.op[0].ptr + off[0], a.op[0].dstride, x);
+  load_words<W>(a.op[1].ptr + off[1], a.op[1].dstride, y);
   uint32_t z[2 * H];
   mul_words<H, H, 2 * H>(x, y, z);
   uint32_t r[(W + 3) / 2];
@@ -643,182 +521,253 @@ tree_sum_kernel(const Args a, const Consts c) {
 //
 // Thread g of a row (g < S = blocks * T, a power of two) owns coefficients
 // g, g + S, g + 2S, ... and runs Horner's rule in u = x^S over them from
-// the top: acc = acc * u + v (one mul_add_mod a coefficient; the first
-// coefficient enters as it is, since barrett<W> takes any x * y + a <
-// B^(2W)).  Its weight x^g = x^lane * x^(32 warp) * x^(bT) comes from three
-// small tables that three warps build by the step digits x^(2^k) while the
-// others start: x^l for l < 32, x^(32m) for m < T/32, the block's base
-// x^(bT) as a product tree over the set bits of b.  acc * x^lane is summed
-// over the warp, times x^(32 warp) over the block, times the base; the
-// row's last block sums the partials.  POWERS: thread g writes x^g (two
-// products from the tables) and steps by u.
+// the top: acc = acc * u + v (one mul_add_words a coefficient, the next
+// coefficient loaded ahead; the first enters as it is, since barrett_words
+// takes any acc * u + v < B^(2W) <= B^(2W+1)).  Its weight x^g = x^lane * x^(32 warp) * x^(bT)
+// comes from three small tables that three warps build by the step digits
+// x^(2^k) while the others start: x^l for l < 32, x^(32m) for m < T/32,
+// the block's base x^(bT) as a product tree over the set bits of b.  acc *
+// x^lane is summed over the warp, times x^(32 warp) over the block, times
+// the base; the row's last block sums the partials.  POWERS: thread g
+// writes x^g (two products from the tables) and steps by u.
+//
+// Every value of these two kernels is held in words (H = ceil(W / 2), as
+// mul_mod_kernel holds them) and every product is mul_words then
+// barrett_words, inlined: the steps, the tables and u live in registers
+// and shared memory, none in local memory at w <= 28 (chip_smoke.py's
+// register log).  The modular sums stay on digits (add_mod, shared with
+// the tree sum and the last block's finish): a thread unpacks its words
+// once, after its lane weight, and packs them again for the warp and block
+// weights.
 
-#define HORNER_THREADS(W) ((W) > kUnrollW ? 128 : 256)
+#define HORNER_THREADS(W) ((W) > 32 ? 128 : 256)
 
 template <int W, int T>
 struct PowTables {
-  uint32_t lo[32][W];       // x^l
-  uint32_t hi[T / 32][W];   // x^(32m)
-  uint32_t base[W];         // x^(bT)
-  uint32_t u[W];            // x^S
+  uint32_t lo[32][(W + 1) / 2];       // x^l
+  uint32_t hi[T / 32][(W + 1) / 2];   // x^(32m)
+  uint32_t base[(W + 1) / 2];         // x^(bT)
+  uint32_t st[32][(W + 1) / 2];       // x^(2^k), 1 for k >= logn
 };
 
-// digits of x^(2^k), or 1 for k >= logn: an exponent with bit k set is at
-// least 2^logn >= n, so only lanes without a coefficient reach those
-template <int W>
-__device__ __forceinline__ void load_step(const Args& a, int k,
-                                          uint32_t (&s)[W]) {
-  const Operand& st = a.op[1];
+// r = (x * y + v) mod p (v only where ADD) for x, y, v < B^W: the product's
+// 2H words, v added into the low H, then barrett_words (x * y + v <
+// B^(2W), so its result is below p); the low H words out.  r may alias x,
+// y or v.
+template <int W, bool ADD>
+__device__ __forceinline__ void mul_add_words(const uint32_t (&x)[(W + 1) / 2],
+                                              const uint32_t (&y)[(W + 1) / 2],
+                                              const uint32_t (&v)[(W + 1) / 2],
+                                              const Words& c,
+                                              uint32_t (&r)[(W + 1) / 2]) {
+  constexpr int H = (W + 1) / 2;
+  uint32_t z[2 * H];
+  mul_words<H, H, 2 * H>(x, y, z);
+  if (ADD) {
+    uint32_t cy = 0;
 #pragma unroll
-  for (int j = 0; j < W; ++j)
-    s[j] = k < a.aux ? (uint32_t)st.ptr[k * st.stride[0] + j * st.dstride]
-                     : (uint32_t)(j == 0);
+    for (int k = 0; k < 2 * H; ++k) {
+      const uint64_t t = (uint64_t)z[k] + (k < H ? v[k] : 0u) + cy;
+      z[k] = (uint32_t)t;
+      cy = (uint32_t)(t >> 32);
+    }
+  }
+  uint32_t t[(W + 3) / 2];   // < p: digits W, W + 1 are 0
+  barrett_words<W>(z, c, t);
+#pragma unroll
+  for (int k = 0; k < H; ++k) r[k] = t[k];
+}
+
+template <int W>
+__device__ __forceinline__ void mul_mod_words(const uint32_t (&x)[(W + 1) / 2],
+                                              const uint32_t (&y)[(W + 1) / 2],
+                                              const Words& c,
+                                              uint32_t (&r)[(W + 1) / 2]) {
+  mul_add_words<W, false>(x, y, y, c, r);
+}
+
+template <int N>
+__device__ __forceinline__ void copy_words(uint32_t (&d)[N], const uint32_t (&s)[N]) {
+#pragma unroll
+  for (int k = 0; k < N; ++k) d[k] = s[k];
+}
+
+template <int N>
+__device__ __forceinline__ void set_one(uint32_t (&v)[N]) {
+#pragma unroll
+  for (int k = 0; k < N; ++k) v[k] = k == 0;
+}
+
+// the W digits of the words v, and back
+template <int W>
+__device__ __forceinline__ void unpack_digits(const uint32_t (&v)[(W + 1) / 2],
+                                              uint32_t (&d)[W]) {
+#pragma unroll
+  for (int j = 0; j < W; ++j) d[j] = (v[j / 2] >> (16 * (j % 2))) & 0xFFFFu;
+}
+
+template <int W>
+__device__ __forceinline__ void pack_digits(const uint32_t (&d)[W],
+                                            uint32_t (&v)[(W + 1) / 2]) {
+#pragma unroll
+  for (int k = 0; k < (W + 1) / 2; ++k)
+    v[k] = d[2 * k] | (2 * k + 1 < W ? d[2 * k + 1] << 16 : 0u);
+}
+
+// the step table: tb.st[k] = the words of x^(2^k), or 1 for k >= logn (an
+// exponent with bit k set is at least 2^logn >= n, so only lanes without a
+// coefficient reach those), loaded by the whole block; visible after the
+// caller's next __syncthreads
+template <int W, int T>
+__device__ __forceinline__ void load_steps(const Args& a, PowTables<W, T>& tb) {
+  constexpr int H = (W + 1) / 2;
+  const Operand& st = a.op[1];
+  for (int i = threadIdx.x; i < 32 * H; i += blockDim.x) {
+    const int k = i / H, j = i % H;
+    uint32_t v = j == 0;
+    if (k < a.aux) {
+      const long long* d = st.ptr + k * st.stride[0] + 2 * j * st.dstride;
+      v = (uint32_t)d[0] | (2 * j + 1 < W ? (uint32_t)d[st.dstride] << 16 : 0u);
+    }
+    tb.st[k][j] = v;
+  }
+}
+
+template <int W, int T>
+__device__ __forceinline__ void load_step(const PowTables<W, T>& tb, int k,
+                                          uint32_t (&s)[(W + 1) / 2]) {
+  if (k < 32) copy_words(s, tb.st[k]);
+  else set_one(s);
 }
 
 // v = x^e from the bits of e in [b0, b1): one product a set bit
-template <int W>
-__device__ __forceinline__ void pow_bits(const Args& a, const Consts& c,
-                                         unsigned e, int b0, int b1,
-                                         uint32_t (&v)[W]) {
-#pragma unroll
-  for (int j = 0; j < W; ++j) v[j] = j == 0;
+template <int W, int T>
+__device__ __forceinline__ void pow_bits(const PowTables<W, T>& tb,
+                                         const Words& c, unsigned e, int b0,
+                                         int b1, uint32_t (&v)[(W + 1) / 2]) {
+  set_one(v);
   for (int k = b0; k < b1; ++k) {
     if ((e >> k) & 1u) {
-      uint32_t s[W];
-      load_step<W>(a, k, s);
-      mul_mod_far<W>(v, s, c, v);
+      uint32_t s[(W + 1) / 2];
+      load_step(tb, k, s);
+      mul_mod_words<W>(v, s, c, v);
     }
   }
 }
 
-template <int W>
-__device__ __forceinline__ void store_digits(uint32_t (&d)[W],
-                                             const uint32_t (&v)[W]) {
-#pragma unroll
-  for (int j = 0; j < W; ++j) d[j] = v[j];
-}
-
-template <int W>
-__device__ __forceinline__ void load_digits(uint32_t (&v)[W],
-                                            const uint32_t (&d)[W]) {
-#pragma unroll
-  for (int j = 0; j < W; ++j) v[j] = d[j];
-}
-
-// the field's constants into shared memory (for the out-of-line products)
-// and u = x^S into the tables; visible on return
+// the tables of block b (log2 T = lt, log2 blocks = lg) from the step
+// table, built by warps 0-2 (warps 0 and 2 through one pow_bits); visible
+// after the caller's next __syncthreads
 template <int W, int T>
-__device__ __forceinline__ void prologue(const Args& a, const Consts& c,
-                                         Consts& sc, int k,
-                                         PowTables<W, T>& tb) {
-  constexpr int kWords = sizeof(Consts) / sizeof(uint32_t);
-  for (int i = threadIdx.x; i < kWords; i += blockDim.x)
-    reinterpret_cast<uint32_t*>(&sc)[i] = reinterpret_cast<const uint32_t*>(&c)[i];
-  if (threadIdx.x == 0) load_step<W>(a, k, tb.u);
-  __syncthreads();
-}
-
-// the tables of block b (log2 T = lt, log2 blocks = lg), built by warps 0-2;
-// visible after the caller's next __syncthreads
-template <int W, int T>
-__device__ __forceinline__ void build_tables(const Args& a, const Consts& c,
-                                             unsigned b, int lt, int lg,
-                                             PowTables<W, T>& tb) {
+__device__ __forceinline__ void build_tables(const Words& c, unsigned b,
+                                             int lt, int lg, PowTables<W, T>& tb) {
+  constexpr int H = (W + 1) / 2;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  uint32_t v[W];
-  if (warp == 0) {
-    pow_bits<W>(a, c, lane, 0, 5, v);
-    store_digits<W>(tb.lo[lane], v);
+  uint32_t v[H];
+  if (warp == 0 || (warp == 2 && lane < T / 32)) {
+    const bool lo = warp == 0;
+    pow_bits(tb, c, lo ? lane : 32u * lane, lo ? 0 : 5, lo ? 5 : lt, v);
+    copy_words(lo ? tb.lo[lane] : tb.hi[lane], v);
   } else if (warp == 1) {
     // lane j holds x^(2^(lt + j)) where bit j of b is set, else 1; a
     // product tree leaves x^(bT) in lane 0
-    if (lane < lg && ((b >> lane) & 1u)) {
-      load_step<W>(a, lt + lane, v);
-    } else {
-#pragma unroll
-      for (int j = 0; j < W; ++j) v[j] = j == 0;
-    }
+    if (lane < lg && ((b >> lane) & 1u)) load_step(tb, lt + lane, v);
+    else set_one(v);
     for (int sh = 1; sh < lg; sh <<= 1) {
-      uint32_t o[W];
+      uint32_t o[H];
 #pragma unroll
-      for (int j = 0; j < W; ++j)
-        o[j] = __shfl_sync(0xFFFFFFFFu, v[j], (lane + sh) & 31);
-      if ((lane & (2 * sh - 1)) == 0 && lane + sh < lg) mul_mod_far<W>(v, o, c, v);
+      for (int k = 0; k < H; ++k)
+        o[k] = __shfl_sync(0xFFFFFFFFu, v[k], (lane + sh) & 31);
+      if ((lane & (2 * sh - 1)) == 0 && lane + sh < lg) mul_mod_words<W>(v, o, c, v);
     }
-    if (lane == 0) store_digits<W>(tb.base, v);
-  } else if (warp == 2 && lane < T / 32) {
-    pow_bits<W>(a, c, 32u * lane, 5, lt, v);
-    store_digits<W>(tb.hi[lane], v);
+    if (lane == 0) copy_words(tb.base, v);
+  }
+}
+
+// the digits' warp sum mod p (block_sum's first stage), valid in lane 0
+template <int W>
+__device__ __forceinline__ void warp_sum(uint32_t (&d)[W], const Consts& c) {
+#pragma unroll
+  for (int sh = 16; sh > 0; sh >>= 1) {
+    uint32_t o[W];
+#pragma unroll
+    for (int j = 0; j < W; ++j) o[j] = __shfl_down_sync(0xFFFFFFFFu, d[j], sh);
+    add_mod<W>(d, o, c);
   }
 }
 
 template <int W>
 __global__ void __launch_bounds__(HORNER_THREADS(W), W <= 16 ? 2 : 1)
-horner_kernel(const Args a, const Consts c) {
-  constexpr int T = HORNER_THREADS(W);
+horner_kernel(const Args a, const Consts c, const Words wc) {
+  constexpr int T = HORNER_THREADS(W), H = (W + 1) / 2;
   __shared__ PowTables<W, T> tb;
   __shared__ uint32_t warp_part[T / 32][W];
-  __shared__ Consts sc;
   const unsigned b = blockIdx.x, row = blockIdx.y;
   const int lt = 31 - __clz(T), lg = 31 - __clz(gridDim.x);
   const long long S = (long long)gridDim.x * T, g = (long long)b * T + threadIdx.x;
-  prologue<W, T>(a, c, sc, lt + lg, tb);
-  build_tables<W, T>(a, sc, b, lt, lg, tb);
+  load_steps(a, tb);
+  __syncthreads();
+  build_tables<W, T>(wc, b, lt, lg, tb);
 
   long long off[1];
   lane_offsets<1>(a, row, off);
   const long long* x = a.op[0].ptr + off[0];
   const long long ds = a.op[0].dstride, ms = a.mstride;
-  uint32_t acc[W];
+  uint32_t acc[H];
 #pragma unroll
-  for (int j = 0; j < W; ++j) acc[j] = 0;
+  for (int k = 0; k < H; ++k) acc[k] = 0;
   if (g < a.m) {
     long long k = (a.m - 1 - g) / S;          // this lane's top coefficient
-    load_coeff<W>(x + (g + k * S) * ms, ds, acc);
-    for (--k; k >= 0; --k) horner_step<W>(acc, tb.u, x + (g + k * S) * ms, ds, sc);
+    load_words<W>(x + (g + k * S) * ms, ds, acc);
+    uint32_t u[H], v[H];
+    load_step(tb, lt + lg, u);
+    if (k > 0) load_words<W>(x + (g + (k - 1) * S) * ms, ds, v);
+    for (--k; k >= 0; --k) {
+      // the next coefficient, loaded ahead (the last one again at k = 0)
+      uint32_t next[H];
+      load_words<W>(x + (g + (k > 0 ? k - 1 : 0) * S) * ms, ds, next);
+      mul_add_words<W, true>(acc, u, v, wc, acc);
+      copy_words(v, next);
+    }
   }
   __syncthreads();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  uint32_t d[W];
   {
-    uint32_t l[W];
-    load_digits<W>(l, tb.lo[lane]);
-    mul_mod_far<W>(acc, l, sc, acc);
+    uint32_t l[H];
+    copy_words(l, tb.lo[lane]);
+    mul_mod_words<W>(acc, l, wc, acc);
+    unpack_digits<W>(acc, d);
   }
-  // the warp's sum (block_sum's first stage); warp 0 multiplies warp m's
-  // by x^(32m) in lane m and sums those
+  // the warp's sum; warp 0 multiplies warp m's by x^(32m) in lane m and
+  // sums those
+  warp_sum<W>(d, c);
+  if (lane == 0) {
 #pragma unroll
-  for (int sh = 16; sh > 0; sh >>= 1) {
-    uint32_t o[W];
-#pragma unroll
-    for (int j = 0; j < W; ++j) o[j] = __shfl_down_sync(0xFFFFFFFFu, acc[j], sh);
-    add_mod<W>(acc, o, c);
+    for (int j = 0; j < W; ++j) warp_part[warp][j] = d[j];
   }
-  if (lane == 0) store_digits<W>(warp_part[warp], acc);
   __syncthreads();
   const long long np = (long long)gridDim.x;
   unsigned* part = a.scratch + ((long long)row * np) * W;
   if (warp == 0) {
 #pragma unroll
-    for (int j = 0; j < W; ++j) acc[j] = 0;
+    for (int j = 0; j < W; ++j) d[j] = 0;
     if (lane < T / 32) {
-      uint32_t h[W];
-      load_digits<W>(acc, warp_part[lane]);
-      load_digits<W>(h, tb.hi[lane]);
-      mul_mod_far<W>(acc, h, sc, acc);
+      uint32_t h[H];
+      pack_digits<W>(warp_part[lane], acc);
+      copy_words(h, tb.hi[lane]);
+      mul_mod_words<W>(acc, h, wc, acc);
+      unpack_digits<W>(acc, d);
     }
-#pragma unroll
-    for (int sh = 16; sh > 0; sh >>= 1) {
-      uint32_t o[W];
-#pragma unroll
-      for (int j = 0; j < W; ++j) o[j] = __shfl_down_sync(0xFFFFFFFFu, acc[j], sh);
-      add_mod<W>(acc, o, c);
-    }
+    warp_sum<W>(d, c);
     if (lane == 0) {
-      uint32_t bs[W];
-      load_digits<W>(bs, tb.base);
-      mul_mod_far<W>(acc, bs, sc, acc);
+      uint32_t bs[H];
+      pack_digits<W>(d, acc);
+      copy_words(bs, tb.base);
+      mul_mod_words<W>(acc, bs, wc, acc);
+      unpack_digits<W>(acc, d);
 #pragma unroll
-      for (int j = 0; j < W; ++j) part[b * W + j] = acc[j];
+      for (int j = 0; j < W; ++j) part[b * W + j] = d[j];
     }
   }
   if (last_of_row(a.count, row, gridDim.x))
@@ -827,30 +776,32 @@ horner_kernel(const Args a, const Consts c) {
 
 template <int W>
 __global__ void __launch_bounds__(HORNER_THREADS(W), W <= 16 ? 2 : 1)
-powers_kernel(const Args a, const Consts c) {
-  constexpr int T = HORNER_THREADS(W);
+powers_kernel(const Args a, const Words wc) {
+  constexpr int T = HORNER_THREADS(W), H = (W + 1) / 2;
   __shared__ PowTables<W, T> tb;
-  __shared__ Consts sc;
   const unsigned b = blockIdx.x;
   const int lt = 31 - __clz(T), lg = 31 - __clz(gridDim.x);
   const long long S = (long long)gridDim.x * T, g = (long long)b * T + threadIdx.x;
-  prologue<W, T>(a, c, sc, lt + lg, tb);
-  build_tables<W, T>(a, sc, b, lt, lg, tb);
+  load_steps(a, tb);
+  __syncthreads();
+  build_tables<W, T>(wc, b, lt, lg, tb);
   __syncthreads();
   if (g >= a.m) return;
   // v = x^g = x^lane * x^(32 warp) * x^(bT)
-  uint32_t v[W], l[W], h[W];
-  load_digits<W>(l, tb.lo[threadIdx.x & 31]);
-  load_digits<W>(h, tb.hi[threadIdx.x >> 5]);
-  mul_mod_far<W>(l, h, sc, v);
-  load_digits<W>(h, tb.base);
-  mul_mod_far<W>(v, h, sc, v);
+  uint32_t v[H], l[H], h[H], u[H];
+  copy_words(l, tb.lo[threadIdx.x & 31]);
+  copy_words(h, tb.hi[threadIdx.x >> 5]);
+  mul_mod_words<W>(l, h, wc, v);
+  copy_words(h, tb.base);
+  mul_mod_words<W>(v, h, wc, v);
+  load_step(tb, lt + lg, u);
   for (long long i = g;;) {
 #pragma unroll
-    for (int j = 0; j < W; ++j) a.out[(long long)j * a.m + i] = v[j];
+    for (int j = 0; j < W; ++j)
+      a.out[(long long)j * a.m + i] = (v[j / 2] >> (16 * (j % 2))) & 0xFFFFu;
     i += S;
     if (i >= a.m) break;
-    mul_mod_far<W>(v, tb.u, sc, v);
+    mul_mod_words<W>(v, u, wc, v);
   }
 }
 
@@ -933,9 +884,9 @@ int launch(int op, const Args& a, const Consts& c, const Words& wc,
   } else if (op == TREE_SUM) {
     tree_sum_kernel<W><<<a.n * a.parts, kSumThreads, 0, st>>>(a, c);
   } else if (op == HORNER) {
-    horner_kernel<W><<<dim3(a.parts, a.n), HORNER_THREADS(W), 0, st>>>(a, c);
+    horner_kernel<W><<<dim3(a.parts, a.n), HORNER_THREADS(W), 0, st>>>(a, c, wc);
   } else {
-    powers_kernel<W><<<a.parts, HORNER_THREADS(W), 0, st>>>(a, c);
+    powers_kernel<W><<<a.parts, HORNER_THREADS(W), 0, st>>>(a, wc);
   }
   return (int)cudaGetLastError();
 }

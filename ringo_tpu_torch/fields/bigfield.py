@@ -190,11 +190,10 @@ def _launch(op: int, hdr_addr: int, cst_addr, like: torch.Tensor, what: str,
     CALLS[OP_NAMES[op]] += 1
 
 
-def _elementwise(op: int, w: int, ts, cst_addr, what: str,
-                 dtype=torch.int64, m: int = 0, digits: int | None = None,
-                 width: bool = True) -> torch.Tensor:
-    """One launch over the broadcast lanes of ``ts`` -> a contiguous
-    [w, *value shape] (``geq``: [*value shape] bool)."""
+def _elementwise_header(op: int, w: int, ts, what: str, dtype=torch.int64,
+                        m: int = 0, digits: int | None = None,
+                        width: bool = True):
+    """(header, its address, output shape, lanes) of an element-wise op."""
     def build():
         if width:
             _check_width(w, what)
@@ -204,7 +203,16 @@ def _elementwise(op: int, w: int, ts, cst_addr, what: str,
         vshape, n, hdr = pack(w, ts, m=m)
         return hdr, (vshape if dtype == torch.bool else (w,) + vshape), n
 
-    _, addr, shape, n = _header((op, w, m, digits, _key(ts)), build)
+    return _header((op, w, m, digits, _key(ts)), build)
+
+
+def _elementwise(op: int, w: int, ts, cst_addr, what: str,
+                 dtype=torch.int64, m: int = 0, digits: int | None = None,
+                 width: bool = True) -> torch.Tensor:
+    """One launch over the broadcast lanes of ``ts`` -> a contiguous
+    [w, *value shape] (``geq``: [*value shape] bool)."""
+    _, addr, shape, n = _elementwise_header(op, w, ts, what, dtype, m, digits,
+                                            width)
     out = torch.empty(shape, dtype=dtype, device=ts[0].device)
     if n:
         _launch(op, addr, cst_addr, ts[0], what, out.data_ptr(),
@@ -364,11 +372,8 @@ def _steps_hdr(hdr, steps: torch.Tensor) -> None:
     hdr[o], hdr[o + 1] = steps.stride(1), steps.stride(0)
 
 
-def horner_cuda(big, vs: torch.Tensor, steps: torch.Tensor) -> torch.Tensor:
-    """``HornerPlan.eval_stacked`` in one launch: vs [w, t, n] digit
-    planes (any values below B^w, read through their strides), steps
-    [logn, w] digits of x^(2^k) (``HornerPlan.steps_for``) -> [w, t]
-    canonical digits of sum_i vs[:, r, i] * x^i mod p."""
+def _horner_header(big, vs: torch.Tensor, steps: torch.Tensor):
+    """(header, its address, rows, blocks a row) of a Horner launch."""
     def build():
         _check_width(big.w, "horner")
         _check((vs,), "horner", big.w)
@@ -387,16 +392,23 @@ def horner_cuda(big, vs: torch.Tensor, steps: torch.Tensor) -> torch.Tensor:
         parts = hdr[H_PARTS] = horner_blocks(big.w, t, n)
         return hdr, t, parts
 
-    _, addr, t, parts = _header((HORNER, big.w, _key((vs, steps))), build)
+    return _header((HORNER, big.w, _key((vs, steps))), build)
+
+
+def horner_cuda(big, vs: torch.Tensor, steps: torch.Tensor) -> torch.Tensor:
+    """``HornerPlan.eval_stacked`` in one launch: vs [w, t, n] digit
+    planes (any values below B^w, read through their strides), steps
+    [logn, w] digits of x^(2^k) (``HornerPlan.steps_for``) -> [w, t]
+    canonical digits of sum_i vs[:, r, i] * x^i mod p."""
+    _, addr, t, parts = _horner_header(big, vs, steps)
     out = torch.empty((big.w, t), dtype=torch.int64, device=vs.device)
     _launch(HORNER, addr, big.consts_addr, vs, "horner", out.data_ptr(),
             vs.data_ptr(), steps.data_ptr(), sums=(t, big.w * t * parts))
     return out
 
 
-def powers_cuda(big, steps: torch.Tensor, n: int) -> torch.Tensor:
-    """``HornerPlan.powers`` in one launch: steps [logn, w] digits of
-    x^(2^k) -> [w, n] digit planes of x^0 .. x^(n-1)."""
+def _powers_header(big, steps: torch.Tensor, n: int):
+    """(header, its address) of a powers launch."""
     def build():
         _check_width(big.w, "powers")
         if not 0 < n < 1 << 31:
@@ -409,8 +421,38 @@ def powers_cuda(big, steps: torch.Tensor, n: int) -> torch.Tensor:
         hdr[H_PARTS] = horner_blocks(big.w, 1, n)
         return (hdr,)
 
-    addr = _header((POWERS, big.w, n, _key((steps,))), build)[1]
+    return _header((POWERS, big.w, n, _key((steps,))), build)
+
+
+def powers_cuda(big, steps: torch.Tensor, n: int) -> torch.Tensor:
+    """``HornerPlan.powers`` in one launch: steps [logn, w] digits of
+    x^(2^k) -> [w, n] digit planes of x^0 .. x^(n-1)."""
+    addr = _powers_header(big, steps, n)[1]
     out = torch.empty((big.w, n), dtype=torch.int64, device=steps.device)
     _launch(POWERS, addr, big.consts_addr, steps, "powers", out.data_ptr(),
             0, steps.data_ptr())
     return out
+
+
+def launch_args(big, op: int, ts, n: int = 0) -> tuple:
+    """The arguments of ``ringo_bigfield`` that the wrapper of ``op``
+    passes for operands ``ts``, all but the output and the stream, for
+    timing the C entry alone: ``MUL_MOD`` (x, y), ``REDUCE_COLS`` (cols,),
+    ``HORNER`` (vs, steps), ``POWERS`` (steps,) with ``n`` powers ->
+    (header, operand pointers [a, b, c], partials, ticket counters); the
+    header is the int64 array whose address the wrapper passes."""
+    x = ts[0]
+    if op == HORNER:
+        hdr, _, t, parts = _horner_header(big, *ts)
+        return (hdr, [x.data_ptr(), ts[1].data_ptr(), 0],
+                *_sum_buffers(x, backend.stream_ptr(x), t, big.w * t * parts))
+    if op == POWERS:
+        return _powers_header(big, x, n)[0], [0, x.data_ptr(), 0], 0, 0
+    if op == MUL_MOD:
+        hit = _elementwise_header(op, big.w, ts, "mul_mod", digits=big.w)
+    elif op == REDUCE_COLS:
+        hit = _elementwise_header(op, big.w, ts, "reduce_cols", m=_digits(x))
+    else:
+        raise ValueError(f"launch_args: op {op} is not mul_mod, reduce_cols, "
+                         "horner or powers")
+    return hit[0], [t.data_ptr() for t in ts] + [0] * (3 - len(ts)), 0, 0

@@ -8,11 +8,12 @@ run:
   against ``torch.broadcast_tensors`` for every broadcasting caller and for
   sliced views;
 * the wrappers' argument checks, and that a wrapper given CPU tensors
-  raises instead of falling back;
+  raises instead of falling back; ``launch_args`` hands out the
+  wrapper's own header and pointers;
 * the kernel's per-lane steps, written out in Python ints as the CUDA
-  source runs them (the Horner and powers kernels' 16-bit product and
-  Barrett, the tree sum's order, the limb chains in two passes), against
-  the plain versions on ZP110, ZP255 and ZP880, corner values included;
+  source runs them (the tree sum's order, the limb chains in two passes),
+  against the plain versions on ZP110, ZP255 and ZP880, corner values
+  included;
 * the word-level mul_mod and reduce_cols kernels step for step (32-bit
   words, carry chains, funnel shifts, truncations) against the plain
   versions at all seven field widths, on the corner planes and on every
@@ -202,59 +203,59 @@ def test_wrappers_check_their_arguments(case, monkeypatch):
                 fn()
 
 
+@pytest.mark.parametrize("op", ["mul_mod", "reduce_cols", "horner", "powers"])
+def test_launch_args_are_the_wrappers(op, monkeypatch):
+    """``launch_args`` (the C entry's arguments for timing it alone) hands
+    out the very header the wrapper builds and launches with, and the
+    wrapper's operand pointers and sum buffers."""
+    def no_library():
+        raise AssertionError("the kernel library was loaded")
+
+    monkeypatch.setattr(backend, "lib", no_library)
+    monkeypatch.setattr(backend, "stream_ptr", lambda t: 0)
+    monkeypatch.setattr(bigfield, "_HEADERS", {})
+    big, plan = BigMul(ZP255), horner.HornerPlan(ZP255)
+    x = _planes(ZP255, _values(ZP255, 5, 7))
+    y = x[:, :1]
+    steps = plan.steps_for(12345, 8)
+    vs = torch.stack([x, x.flip(1)], 1)
+    code = {"mul_mod": bigfield.MUL_MOD, "reduce_cols": bigfield.REDUCE_COLS,
+            "horner": bigfield.HORNER, "powers": bigfield.POWERS}[op]
+    ts, n, wrapper, ptrs = {
+        "mul_mod": ((x, y), 0, lambda: bigfield.mul_mod_cuda(big, x, y),
+                    [x.data_ptr(), y.data_ptr(), 0]),
+        "reduce_cols": ((x,), 0, lambda: bigfield.reduce_cols_cuda(big, x),
+                        [x.data_ptr(), 0, 0]),
+        "horner": ((vs, steps), 0, lambda: bigfield.horner_cuda(big, vs, steps),
+                   [vs.data_ptr(), steps.data_ptr(), 0]),
+        "powers": ((steps,), 8, lambda: bigfield.powers_cuda(big, steps, 8),
+                   [0, steps.data_ptr(), 0]),
+    }[op]
+    hdr, got, scratch, count = bigfield.launch_args(big, code, ts, n)
+    assert got == ptrs
+    assert hdr[bigfield.H_W] == big.w
+    if op in ("mul_mod", "reduce_cols"):
+        m = x.shape[0] if op == "reduce_cols" else 0
+        np.testing.assert_array_equal(hdr, bigfield.pack(big.w, ts, m=m)[2])
+    if op == "horner":
+        assert scratch and count
+        assert hdr[bigfield.H_PARTS] == bigfield.horner_blocks(big.w, 2, vs.shape[2])
+    else:
+        assert scratch == count == 0
+    with pytest.raises(ValueError, match="on the card"):
+        wrapper()
+    [cached] = bigfield._HEADERS.values()
+    assert cached[0] is hdr
+    with pytest.raises(ValueError, match="not mul_mod"):
+        bigfield.launch_args(big, bigfield.ADD, (x, x, x))
+
+
 # ------------------------------------ the kernel's steps in Python ints
 
 def _k_consts(big):
     c = [int(v) for v in big.consts]
     w = big.w
     return c[:w + 2], c[w + 2:2 * w + 4], c[2 * w + 4:]
-
-
-def _k_barrett(w, z, p, mu):
-    """barrett<W> of csrc/bigfield.cu on the 2w+1 digits z."""
-    qh, acc = [0] * (w + 1), 0
-    for col in range(2 * w + 2):
-        for i in range(w + 2):
-            j = col - i
-            if 0 <= j < w + 2:
-                acc += z[w - 1 + i] * mu[j]
-        if col >= w + 1:
-            qh[col - w - 1] = acc & MASK
-        acc >>= 16
-    r, acc, borrow = [0] * (w + 2), 0, 0
-    for col in range(w + 2):
-        for i in range(w + 1):
-            j = col - i
-            if 0 <= j < w:
-                acc += qh[i] * p[j]
-        s = z[col] - (acc & MASK) - borrow
-        acc >>= 16
-        r[col], borrow = s & MASK, int(s < 0)
-    for _ in range(2):
-        d, borrow = [0] * (w + 2), 0
-        for j in range(w + 2):
-            s = r[j] - p[j] - borrow
-            d[j], borrow = s & MASK, int(s < 0)
-        if not borrow:
-            r = d
-    return r[:w]
-
-
-def _k_mul_mod(big, x, y):
-    """mul_mod<W> (the Horner and powers kernels' product) on one lane's
-    digit lists."""
-    w = big.w
-    p, mu, _ = _k_consts(big)
-    z, acc = [0] * (2 * w + 1), 0
-    for col in range(2 * w):
-        for k in range(w):
-            j = col - k
-            if 0 <= j < w:
-                acc += x[k] * y[j]
-        z[col] = acc & MASK
-        acc >>= 16
-    z[2 * w] = acc & MASK
-    return _k_barrett(w, z, p, mu)
 
 
 def _lanes(t):
@@ -266,17 +267,6 @@ def _corner_planes(spec, n, seed):
     """Random field elements, 0, 1, p-1 and the all-0xFFFF digit plane."""
     vals = _values(spec, n, seed) + [(1 << (16 * spec.w)) - 1]
     return _planes(spec, vals)
-
-
-@pytest.mark.parametrize("name", FIELDS)
-def test_kernel_steps_mul_mod(name):
-    spec = FIELDS[name]
-    big = BigMul(spec)
-    x = _corner_planes(spec, 12, 5)
-    y = _corner_planes(spec, 12, 6).flip(1)
-    want = big.mul_mod_plain(x, y)
-    got = [_k_mul_mod(big, a, b) for a, b in zip(_lanes(x), _lanes(y))]
-    assert got == _lanes(want)
 
 
 @pytest.mark.parametrize("name,m", [("zp110", 15), ("zp110", 3), ("zp110", 40),

@@ -6,12 +6,15 @@ and ``powers_cuda``) on the CPU, where the kernel cannot run:
   them (the shared tables x^l and x^(32m), each block's base x^(bT) by a
   product tree over the step digits, Horner's rule in x^S over a lane's
   coefficients, the lane, warp and block products, the partials and the
-  last block's sum), which asserts at every product that barrett<W>'s
+  last block's sum), which asserts at every product that barrett_words'
   input stays below B^(2w), held against Horner's rule in Python ints and
   the JAX package's ``HornerPlan`` at every field width, n in {1, 2, 255,
   257, 1000}, t in {1, 3}, x in {0, 1, p - 1, random}, coefficients 0, 1,
   p - 1 and the all-0xFFFF plane, at the launch geometry the wrapper picks
   and at more blocks;
+* the kernels' word-level multiply-add (``mul_add_words``: the product on
+  32-bit words, the addend's carry, ``barrett_words``) step for step at
+  all seven widths, at the extremes the Horner step reaches;
 * the plain versions ``eval_stacked_plain`` and ``powers_plain`` against
   the JAX package's ``evaluate_many`` and ``powers`` and Python ints;
 * the wrappers with ``bigfield.on_card`` patched true and
@@ -35,7 +38,8 @@ from ringo_tpu_torch.fields import bigfield, limb, spec as port_spec
 from ringo_tpu_torch.ops import horner
 from ringo_tpu_torch.ops.bigmul import BigMul
 
-from test_torch_bigfield import MASK, _k_barrett, _k_consts
+from test_torch_bigfield import (ALL_FIELDS, M32, MASK, _w_barrett, _w_consts,
+                                 _w_digits, _w_mul, _w_pack)
 
 FIELDS = {"zp110": ZP110, "zp128": ZP128, "zp220": ZP220, "zp240": ZP240,
           "zp255": ZP255, "zp440": ZP440, "zp880": ZP880}
@@ -85,7 +89,7 @@ def _steps(spec, x, n):
 
 class _Model:
     """The arithmetic the kernels run, in Python ints: every product is
-    barrett<W> of x * y + a, which must stay below B^(2w)."""
+    barrett_words of x * y + a, which must stay below B^(2w)."""
 
     def __init__(self, spec, steps, T, G):
         self.p, self.w = spec.p, spec.w
@@ -95,7 +99,7 @@ class _Model:
         self.hi = [self.pow_bits(32 * m, 5, self.lt) for m in range(T // 32)]
 
     def mul(self, x, y, a=0):
-        """mul_add_mod<W>: (x * y + a) mod p."""
+        """mul_add_words<W>: (x * y + a) mod p."""
         top = 1 << (16 * self.w)
         assert 0 <= x < top and 0 <= y < top and 0 <= a < top
         assert x * y + a < top * top
@@ -202,40 +206,38 @@ def test_kernel_steps_horner_and_powers(name, n):
             assert m.powers(n) == want_pw, (label, T, G)
 
 
-def _k_mul_add_mod(big, x, y, a):
-    """mul_add_mod<W> on digit lists: the product's columns with a added
-    into the low w, ripple, barrett<W>."""
+def _w_mul_add(big, x, y, v):
+    """mul_add_words<W, true> of csrc/bigfield.cu on one lane's digit
+    lists: mul_words into 2H words, v's H words added into the low ones
+    with the carry up to the top word, barrett_words, the low H words."""
     w = big.w
-    p, mu, _ = _k_consts(big)
-    z, acc = [0] * (2 * w + 1), 0
-    for col in range(2 * w):
-        if col < w:
-            acc += a[col]
-        for k in range(w):
-            j = col - k
-            if 0 <= j < w:
-                acc += x[k] * y[j]
-        z[col] = acc & MASK
-        acc >>= 16
-    z[2 * w] = acc & MASK
-    return _k_barrett(w, z, p, mu)
+    h = (w + 1) // 2
+    z = _w_mul(_w_pack(x, h), _w_pack(y, h), h, h, 2 * h)
+    vw, cy = _w_pack(v, h), 0
+    for k in range(2 * h):
+        t = z[k] + (vw[k] if k < h else 0) + cy
+        z[k], cy = t & M32, t >> 32
+    assert cy == 0
+    return _w_digits(_w_barrett(w, z, _w_consts(big))[:h], w)
 
 
-@pytest.mark.parametrize("name", ["zp110", "zp255", "zp880"])
-def test_kernel_steps_mul_add_mod(name):
-    """barrett<W> of x * y + a at the extremes the Horner step reaches: x
-    and a the all-0xFFFF value, y = p - 1."""
-    spec = FIELDS[name]
-    big = BigMul(_port(spec))
+@pytest.mark.parametrize("name", ALL_FIELDS)
+def test_kernel_words_mul_add_mod(name):
+    """The Horner step acc * u + v on words at the extremes it reaches: acc
+    and v the all-0xFFFF value (the first coefficient enters unreduced),
+    u = p - 1, all three all-0xFFFF, 0 and 1, and random ones."""
+    spec = ALL_FIELDS[name]
+    big = BigMul(spec)
     top = (1 << (16 * spec.w)) - 1
-    rng = random.Random(3)
+    rng = random.Random(spec.w)
     cases = [(top, spec.p - 1, top), (top, top, top), (0, spec.p - 1, top),
-             (1, 1, 0)] + [(rng.randrange(top), rng.randrange(spec.p),
-                            rng.randrange(top)) for _ in range(5)]
+             (top, spec.p - 1, 0), (1, 1, 0), (0, 0, 0)] + [
+        (rng.randrange(top), rng.randrange(spec.p), rng.randrange(top))
+        for _ in range(8)]
     digits = lambda v: [(v >> (16 * j)) & MASK for j in range(spec.w)]
     for x, y, a in cases:
-        got = _k_mul_add_mod(big, digits(x), digits(y), digits(a))
-        assert got == digits((x * y + a) % spec.p)
+        got = _w_mul_add(big, digits(x), digits(y), digits(a))
+        assert got == digits((x * y + a) % spec.p), (x, y, a)
 
 
 # ------------------------------------------------- the plain versions
