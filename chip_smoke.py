@@ -19,6 +19,20 @@
    it at N = 2^19, for t = 1 and for a batch of 2 (whose parameters have
    other rings); the warm-up calls of phases 3 and 4 and the calls of
    phase 5 fail if they launch it at a shape that was not held here;
+2'. MAC phase: the Ajtai MAC kernel (csrc/mac.cu) against its plain
+   version (the float64 product of ``fold_key`` planes) and
+   ``bench.mac_plain`` (int64, one k at a time), exact, at every MAC shape
+   of the commits (t = 1, 2, 4), evaluate and verify at N = 2^19, and of
+   the batch of 2, each in its call site's layout (``bench_mac.mac_shapes``:
+   contiguous, transposed views, slices, unit columns), with q - 1 in a key
+   row and an input lane, and at K = KERNEL_MAX_K with q - 1 throughout;
+   each shape timed (the wrapper back to back, the C entry back to back and
+   cold: ``bench_mac.timings``) beside its bound and the float64 route
+   (``library_ms``, which it must beat); ptxas's registers and stack of
+   every instantiation (fails on local memory).  The Buckler kernel checks
+   hold their MAC shapes the same way (timed at PublicKey (13, ZP220)), and
+   every path below that holds its NTT shapes fails on a MAC launch at a
+   shape not held;
 2a. AES phase: the AES-256-CTR keystream kernel of the samplers
    (csrc/aes256_ctr.cu) against the numpy keystream, exact bytes, at one
    8 KiB refill, a read-ahead window, a commit's and a CRS expansion's
@@ -218,32 +232,51 @@ def ntt_key(m, q32, n: int):
 
 
 @contextlib.contextmanager
-def ntt_shapes_held(checked: set, what: str):
-    """Every launch of the NTT kernel within the block must be at a (ring,
-    direction, rows) in ``checked``, the set that the kernel phase held
-    against the plain version: a shape the paths gain later fails here
-    until ``roundtrip_ntt_shapes`` lists it.  The launch itself is the
-    wrapper's, untouched."""
-    from ringo_tpu_torch.ops import ntt_matmul
+def shapes_held(checked: set, what: str):
+    """Every launch of the NTT kernel and of the MAC kernel within the block
+    must be at a shape in ``checked``, the set that the kernel and MAC
+    phases (and ``buckler_kernel_checks``) held against the plain versions:
+    a (ring, direction, rows) of the NTT, a (primes, J, K, n, branch of x's
+    layout) of the MAC (``bench_mac.mac_key``).  A block that launches no
+    NTT or no MAC fails too.  A shape the paths gain later fails here until
+    ``roundtrip_ntt_shapes`` or ``bench_mac.mac_shapes`` lists it.  The
+    launches themselves are the wrappers', untouched."""
+    from ringo_tpu_torch import bench_mac
+    from ringo_tpu_torch.ops import mac_matmul, ntt_matmul
 
-    real, seen = ntt_matmul.ntt_mform_cuda, []
+    real_ntt, real_mac, seen, macs = (ntt_matmul.ntt_mform_cuda,
+                                      mac_matmul.mod_mac_cuda, [], [])
 
     def noting(v, m, q32):
         seen.append(ntt_key(m, q32, v.shape[1]))
-        return real(v, m, q32)
+        return real_ntt(v, m, q32)
+
+    def noting_mac(ring, key, x):
+        macs.append(bench_mac.mac_key(ring.primes, key.shape[1], x))
+        return real_mac(ring, key, x)
 
     ntt_matmul.ntt_mform_cuda = noting
+    mac_matmul.mod_mac_cuda = noting_mac
     try:
         yield
     finally:
-        ntt_matmul.ntt_mform_cuda = real
+        ntt_matmul.ntt_mform_cuda = real_ntt
+        mac_matmul.mod_mac_cuda = real_mac
     missing = sorted({(len(k[0]), k[2]) for k in seen if k not in checked})
     if missing or not seen:
         raise AssertionError(f"{what}: NTT launches at (L, rows) {missing} of "
                              f"{len(seen)} were not held against the plain "
                              "version in the kernel phase")
-    log(f"{what}: {len(seen)} NTT launches at {len(set(seen))} shapes, each "
-        "held against the plain version in the kernel phase")
+    if not macs:
+        raise AssertionError(f"{what}: no launch of the MAC kernel")
+    missing = sorted({k[2:] for k in macs if k not in checked})
+    if missing:
+        raise AssertionError(f"{what}: MAC launches at (J, K, n, kn_order) "
+                             f"{missing} of {len(macs)} were not held "
+                             "against the plain version in the MAC phase")
+    log(f"{what}: {len(seen)} NTT launches at {len(set(seen))} shapes and "
+        f"{len(macs)} MAC launches at {len(set(macs))} shapes, each held "
+        "against the plain version")
 
 
 def ntt_bound(L: int, n: int, d: int):
@@ -333,7 +366,7 @@ def roundtrip_ntt_shapes(p):
     """(label, ring attribute, direction, rows) of the NTT launches of
     ``evaluate`` and ``verify`` that a commit at t = 1 does not make, read
     off jindo/prover.py, jindo/verifier.py and jindo/challenge.py;
-    ``ntt_shapes_held`` holds the paths to it."""
+    ``shapes_held`` holds the paths to it."""
     B, R = p.cols + 1, p.rows
     K, J = p.mlwe_rank + p.in_msis_rank, p.in_msis_rank
     shapes = [
@@ -506,6 +539,90 @@ def kernel_phase(params, params_batch):
                 shape=f"{n} lanes, T={host_t.shape[1]}", kernel="twin")
     rows.append(twin_row)
     return rows, checked, errs
+
+
+# ---------------------------------------------------------------- MAC phase
+
+def hold_mac(rg, label, J: int, K: int, n: int, layout: str, checked: set,
+             errs: dict, gen, time_it: bool = False, extreme: bool = False):
+    """The MAC kernel against its plain version and ``bench.mac_plain`` at
+    one shape, in its call site's layout (exact); notes the shape as held.
+    With ``time_it`` the row carries its times (``bench_mac.timings``)."""
+    from ringo_tpu_torch import bench_mac
+
+    key, x = bench_mac.inputs(rg, J, K, n, layout, gen, extreme=extreme)
+    err, kres = bench_mac.hold(rg, key, x)
+    errs["mac"] = max(errs["mac"], err)
+    checked.add(bench_mac.mac_key(rg.primes, J, x))
+    row = dict(label=label, L=rg.L, J=J, K=K, n=n, layout=layout)
+    if time_it:
+        row.update(bench_mac.timings(rg, key, x, kres))
+        if row["ms"] >= row["library_ms"]:
+            raise AssertionError(f"mac {label}: kernel {row['ms']:.4f} ms is "
+                                 "not faster than the float64 route "
+                                 f"{row['library_ms']:.4f} ms")
+        log(f"mac {label}: [{rg.L}, {J}, {K}] x [{rg.L}, {K}, {n}] "
+            f"({layout}) wrapper {row['ms']:.4f} ms, C entry "
+            f"{row['device_ms']:.4f} ms, cold {row['cold_ms']:.4f} ms, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}), share "
+            f"{row['cold_share']:.3f} cold; float64 route "
+            f"{row['library_ms']:.4f} ms, plain {row['plain_ms']:.4f} ms; "
+            "equal to plain")
+    del key, x, kres
+    return row
+
+
+def mac_phase(params, params_batch, checked: set, errs: dict):
+    """The Ajtai MAC kernel (csrc/mac.cu) against its plain version and
+    ``bench.mac_plain`` (exact) at every MAC shape of the commits (t = 1,
+    the commit phase's ``commit_many`` of two, t = 4), the evaluate and the
+    verify on ``params``, and of the batch of 2's commits (t = 1, 2),
+    evaluate and verify, each in its call site's layout
+    (``bench_mac.mac_shapes``; every shape noted in ``checked``), and at
+    K = KERNEL_MAX_K with q - 1 throughout; each timed beside its bound and
+    the float64 route (which it must beat); ptxas's registers and stack of
+    every instantiation (fails on local memory).  Returns the kernel row:
+    the commit's inner MAC."""
+    import torch
+
+    from ringo_tpu_torch import bench_mac
+    from ringo_tpu_torch.ops import mac_matmul
+    from ringo_tpu_torch.rings import rns
+
+    errs["mac"] = 0
+    usage = bench_mac.kernel_usage()
+    for k, v in usage.items():
+        log(f"mac ptxas {k}: {v['registers']} registers, stack {v['stack']}, "
+            f"spills {v['spill_stores']} / {v['spill_loads']}")
+    gen = torch.Generator(device="cpu").manual_seed(21)
+    shapes = []
+    for pp, ts in ((params, (1, 2, 4)), (params_batch, (1, 2))):
+        rings = {"ring_q": pp.ring_q.on("cuda"),
+                 "ring_q_out": pp.ring_q_out.on("cuda")}
+        for label, which, J, K, n, layout in bench_mac.mac_shapes(pp, ts):
+            shapes.append(hold_mac(rings[which], f"batch {pp.batch} {label}",
+                                   J, K, n, layout, checked, errs, gen,
+                                   time_it=True))
+            torch.cuda.empty_cache()
+    top = rns.RnsRing(256, bench_mac.TOP_PRIMES, "cuda")
+    K = mac_matmul.KERNEL_MAX_K
+    for n in (1, 8):
+        hold_mac(top, f"K = {K}, q - 1 throughout, n = {n}", 1, K, n, "cat",
+                 checked, errs, gen, extreme=True)
+    log(f"mac K = {K} with q - 1 throughout (primes just below 2^31), n = 1 "
+        "and 8: equal to plain")
+    torch.cuda.empty_cache()
+    inner = shapes[0]
+    return dict(name="mod_mac", route="cuda",
+                source="ringo_tpu_torch/csrc/mac.cu",
+                replaces="ringo_tpu/ops/mac_matmul.py:179",
+                ms=inner["ms"], device_ms=inner["device_ms"],
+                cold_ms=inner["cold_ms"],
+                plain_ms=inner["plain_ms"], bound_ms=inner["bound_ms"],
+                bound_by=inner["bound_by"], library_ms=inner["library_ms"],
+                shape=f"[{inner['L']}, {inner['J']}, {inner['K']}] x "
+                      f"[{inner['L']}, {inner['K']}, {inner['n']}] int32, d = 256",
+                kernel="mac", shapes=shapes, ptxas=usage)
 
 
 # ---------------------------------------------------------------- AES phase
@@ -1593,7 +1710,7 @@ def commit_phase(backend, jindo, params, checked):
     v = random_values(params.spec, 1 << LOG_N, 1)
     v2 = random_values(params.spec, (1 << LOG_N) - 12345, 2)
     t0 = time.perf_counter()
-    with ntt_shapes_held(checked, "warm-up commit"):
+    with shapes_held(checked, "warm-up commit"):
         com, op = prv.commit(v)
     torch.cuda.synchronize()
     log(f"warm-up commit: {time.perf_counter() - t0:.3f} s")
@@ -1691,7 +1808,7 @@ def roundtrip_phase(backend, jindo, params, checked, prv, v, com, op):
     spec = params.spec
     x = X_POINT % spec.p
     held = torch.cuda.memory_allocated() / 2 ** 30
-    with ntt_shapes_held(checked, "warm-up evaluate"):
+    with shapes_held(checked, "warm-up evaluate"):
         ys, pf = prv.evaluate(x, [v], [com], [op])
     backend.reset_launches()
     (ys, pf), ev_times, ev_peak = timed(
@@ -1711,7 +1828,7 @@ def roundtrip_phase(backend, jindo, params, checked, prv, v, com, op):
             raise AssertionError(f"proof.{f}: shape or digits out of range")
 
     vrf = jindo.Verifier(params, CRS, device="cuda", ck=prv.ck)
-    with ntt_shapes_held(checked, "warm-up verify"):
+    with shapes_held(checked, "warm-up verify"):
         if vrf.verify(x, [com], ys, pf) is not True:
             raise AssertionError("verify rejected an honest proof")
     backend.reset_launches()
@@ -1722,7 +1839,7 @@ def roundtrip_phase(backend, jindo, params, checked, prv, v, com, op):
     if ok is not True:
         raise AssertionError("verify rejected an honest proof")
     for name, launched in (("evaluate", ev_launches), ("verify", vf_launches)):
-        for k in ("ntt", "bigfield"):
+        for k in ("ntt", "bigfield", "mac"):
             if launched[k] <= 0:
                 raise AssertionError(f"kernel {k} was not launched in {name}")
     if ev_launches["bigfield"] != len(ev_times):
@@ -1783,19 +1900,22 @@ def batch_phase(backend, jindo, params, checked):
     coms, opens = [c for c, _ in out], [o for _, o in out]
     torch.cuda.synchronize()
     peak_commit = torch.cuda.max_memory_allocated() / 2 ** 30
-    with ntt_shapes_held(checked, "batch evaluate"):
+    with shapes_held(checked, "batch evaluate"):
         (ys, pf), ev_s, peak_ev = timed(
             lambda: prv.evaluate(x, vs, coms, opens), reps=1)
     if ys != [bench.horner_ints(spec, v, x) for v in vs]:
         raise AssertionError("batch evaluate: y != v(x)")
     vrf = jindo.Verifier(params, CRS, device="cuda", ck=prv.ck)
-    with ntt_shapes_held(checked, "batch verify"):
+    with shapes_held(checked, "batch verify"):
         ok, vf_s, peak_vf = timed(lambda: vrf.verify(x, coms, ys, pf), reps=1)
     if ok is not True:
         raise AssertionError("batch verify rejected an honest proof")
     if vrf.verify(x, coms[::-1], ys, pf) is not False:
         raise AssertionError("batch verify accepted swapped commitments")
     launches = dict(backend.LAUNCHES)
+    for k in ("ntt", "bigfield", "mac"):
+        if launches[k] <= 0:
+            raise AssertionError(f"batch of 2: kernel {k} was not launched")
     log(f"batch of 2 at N=2^{LOG_N}: commit_many, evaluate ({ev_s[0]:.3f} s, "
         f"first call), verify ({vf_s[0]:.3f} s, first call): accepted, "
         f"swapped commitments rejected; peak device memory commit_many "
@@ -1920,14 +2040,18 @@ def buckler_ntt_shapes(params, ts):
 
 
 def buckler_kernel_checks(tag: str, params, ts, checked: set, errs: dict,
-                          gen, rng, time_them: bool = False):
-    """The three kernels against their plain versions at the shapes and
-    tables of a Buckler path on ``params``: the NTT at every launch shape
-    (each noted in ``checked``), ChaCha20 for the largest commit batch's
-    keys at the u_enc and u_ml block counts, the twin search with both
-    sigmas' tables and the boundary draws.  Returns the NTT rows timed."""
+                          gen, rng, time_them: bool = False,
+                          time_macs: bool = False):
+    """The kernels against their plain versions at the shapes and tables
+    of a Buckler path on ``params``: the NTT and the MAC at every launch
+    shape (each noted in ``checked``), ChaCha20 for the largest commit
+    batch's keys at the u_enc and u_ml block counts, the twin search with
+    both sigmas' tables and the boundary draws.  Returns the NTT rows,
+    timed where ``time_them``, and the MAC rows, timed where
+    ``time_macs``."""
     import torch
 
+    from ringo_tpu_torch import bench_mac
     from ringo_tpu_torch.ops import ntt_matmul
 
     p = params
@@ -1944,6 +2068,10 @@ def buckler_kernel_checks(tag: str, params, ts, checked: set, errs: dict,
             b, by = ntt_bound(rg.L, n, rg.d)
             timed_rows.append(dict(label=label, ring=which, way=way, L=rg.L,
                                    rows=n, ms=ms, bound_ms=b, bound_by=by))
+    mac_rows = []
+    for label, which, J, K, n, layout in bench_mac.mac_shapes(p, sorted(set(ts))):
+        mac_rows.append(hold_mac(rings[which], f"{tag} {label}", J, K, n,
+                                 layout, checked, errs, gen, time_it=time_macs))
     t = max(ts)
     B, R, d = p.cols + 1, p.rows, p.degree
     K = p.mlwe_rank + p.in_msis_rank
@@ -1961,9 +2089,10 @@ def buckler_kernel_checks(tag: str, params, ts, checked: set, errs: dict,
     torch.cuda.empty_cache()
     log(f"{tag}: L={p.ring_q.L} LO={p.ring_q_out.L} rows={p.rows} "
         f"cols={p.cols} batch={p.batch}, commit batches {ts}: NTT at "
-        f"{len(buckler_ntt_shapes(p, ts))} shapes, ChaCha20 ({t} keys), twin "
-        f"search (T = {tables[0]} and {tables[1]}) equal to the plain versions")
-    return timed_rows
+        f"{len(buckler_ntt_shapes(p, ts))} shapes, MAC at {len(mac_rows)}, "
+        f"ChaCha20 ({t} keys), twin search (T = {tables[0]} and {tables[1]}) "
+        "equal to the plain versions")
+    return timed_rows, mac_rows
 
 
 def buckler_compile(name: str, field: str, log_n: int, device: str,
@@ -2036,12 +2165,13 @@ def buckler_phase(backend, point, checked: set, errs: dict, gen, rng,
         f"rank {p.rank}, embedding rank {prv.poly_ring.rank}, w={b['spec'].w}, "
         f"engine {type(prv.poly_ring.dev_plan).__name__}")
     ts = bench.commit_batches(prv.ctx)
-    ntt_rows = buckler_kernel_checks(label, p, ts, checked, errs, gen, rng,
-                                     time_them=timed_reps > 0)
+    ntt_rows, mac_rows = buckler_kernel_checks(
+        label, p, ts, checked, errs, gen, rng, time_them=timed_reps > 0,
+        time_macs=point == BUCKLER_POINTS[0])
     held = torch.cuda.memory_allocated() / 2 ** 30
     torch.cuda.reset_peak_memory_stats()
     backend.reset_launches()
-    with ntt_shapes_held(checked, f"{label} first prove"):
+    with shapes_held(checked, f"{label} first prove"):
         t0 = time.perf_counter()
         pf = prv.prove(a)
         torch.cuda.synchronize()
@@ -2056,7 +2186,7 @@ def buckler_phase(backend, point, checked: set, errs: dict, gen, rng,
                                  "keystream to the host")
     torch.cuda.reset_peak_memory_stats()
     backend.reset_launches()
-    with ntt_shapes_held(checked, f"{label} first verify"):
+    with shapes_held(checked, f"{label} first verify"):
         t0 = time.perf_counter()
         ok = vrf.verify(pub, pf)
         torch.cuda.synchronize()
@@ -2081,7 +2211,8 @@ def buckler_phase(backend, point, checked: set, errs: dict, gen, rng,
                first_verify_peak_gib=first_verify_peak,
                first_prove_launches=first_prove_launches,
                first_verify_launches=first_verify_launches,
-               ntt_at_buckler_shapes=ntt_rows)
+               ntt_at_buckler_shapes=ntt_rows,
+               mac_at_buckler_shapes=[r for r in mac_rows if "ms" in r])
     if timed_reps:
         backend.reset_launches()
         calls0 = dict(bigfield.CALLS)
@@ -2118,7 +2249,7 @@ def buckler_phase(backend, point, checked: set, errs: dict, gen, rng,
     for k in backend.KERNELS:
         if prove_launches[k] <= 0:
             raise AssertionError(f"{label}: kernel {k} not launched in prove")
-    for k in ("ntt", "bigfield"):
+    for k in ("ntt", "bigfield", "mac"):
         if verify_launches[k] <= 0:
             raise AssertionError(f"{label}: kernel {k} not launched in verify")
     log(f"{label}: first prove {first_prove_s:.3f} s (peak "
@@ -2208,7 +2339,7 @@ def mult_example_phase(backend, checked: set):
     from ringo_tpu_torch.examples import mult
 
     backend.reset_launches()
-    with ntt_shapes_held(checked, "mult example"):
+    with shapes_held(checked, "mult example"):
         r = mult.main(13, seed=EXAMPLE_SEED, device="cuda")
     launches = dict(backend.LAUNCHES)
     if r["ok"] is not True:
@@ -2280,7 +2411,7 @@ def buckler_card_vs_cpu_and_fixture(checked: set, errs: dict, gen, rng):
                 buckler_kernel_checks(f"{name} (N=2^{log_n})", b["prv"].params,
                                       bench.commit_batches(b["prv"].ctx), checked,
                                       errs, gen, rng)
-                with ntt_shapes_held(checked, f"{name} card prove"):
+                with shapes_held(checked, f"{name} card prove"):
                     pf = b["prv"].prove(b["assignment"])
                 torch.cuda.synchronize()
             else:
@@ -2357,7 +2488,7 @@ def parallel_phase(backend, jindo, params, checked, held, mesh):
     e, noise = (torch.from_numpy(a).to("cuda")
                 for a in example_inputs(params, lead=(2,)))
     step = parallel.build_sharded_commit(prv, mesh)
-    with ntt_shapes_held(checked, "sharded commit core"):
+    with shapes_held(checked, "sharded commit core"):
         # the first collective of each axis's group starts its NCCL
         # communicator: that call is timed apart
         _, rec["sharded_commit_first_s"] = warm_s(
@@ -2376,7 +2507,7 @@ def parallel_phase(backend, jindo, params, checked, held, mesh):
 
     parallel.shard_jindo_prover(prv, mesh)
     vs, x = held["vs"], held["x"]
-    with ntt_shapes_held(checked, "sharded round trip"):
+    with shapes_held(checked, "sharded round trip"):
         out, rec["sharded_commit_many_s"] = count(
             lambda: warm_s(lambda: prv.commit_many(vs)))
         coms, opens = [c for c, _ in out], [o for _, o in out]
@@ -2457,7 +2588,7 @@ def parallel_buckler(backend, b, checked, mesh):
     vrf = buckler.Verifier(vrf0.params, ring, vrf0.ecd, vrf0.ctx, jv,
                            vrf0.pw_paths, vrf0.w_paths)
     backend.reset_launches()
-    with ntt_shapes_held(checked, "sharded PublicKey prove and verify"):
+    with shapes_held(checked, "sharded PublicKey prove and verify"):
         pf, prove_s = warm_s(lambda: prv.prove(b["assignment"]))
         ok, verify_s = warm_s(lambda: vrf.verify(b["public"], pf))
     launches = dict(backend.LAUNCHES)
@@ -2504,6 +2635,8 @@ def main() -> int:
     params_batch = jindo.new_parameters(ZP255, 1 << LOG_N, 2)
     rows, checked, errs = kernel_phase(params, params_batch)
     phase = lambda what: log(f"-- {what} (at {time.perf_counter() - t_start:.1f} s)")
+    phase("MAC phase")
+    rows.append(mac_phase(params, params_batch, checked, errs))
     phase("AES phase")
     rows.append(aes_phase(params, errs))
     phase("AES fold phase")

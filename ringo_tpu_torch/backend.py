@@ -27,6 +27,7 @@ import re
 import shutil
 import subprocess
 import threading
+import time
 
 import torch
 
@@ -36,7 +37,8 @@ BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 
-KERNELS = ("ntt", "chacha", "twin", "aes", "bigfield", "gauss", "field")
+KERNELS = ("ntt", "chacha", "twin", "aes", "bigfield", "gauss", "field",
+           "mac")
 LAUNCHES = {k: 0 for k in KERNELS}
 
 
@@ -63,8 +65,8 @@ _LIB = None
 _LIB_LOCK = threading.Lock()
 
 # C signatures: one letter per argument, "p" = pointer (ctypes.c_void_p,
-# or the pointer is cut to 32 bits), "i" = int; every function returns
-# its cudaError_t as int.
+# or the pointer is cut to 32 bits), "i" = int, "l" = long long; every
+# function returns its cudaError_t as int.
 _SIGNATURES = {
     "ringo_ntt_mform": "pppppiip",
     "ringo_chacha20": "ppiip",
@@ -75,8 +77,9 @@ _SIGNATURES = {
     "ringo_gauss": "ipp",
     "ringo_gauss_loop": "pp",
     "ringo_field_sample": "pp",
+    "ringo_mac": "ppppiiiilllp",
 }
-_CT = {"p": ctypes.c_void_p, "i": ctypes.c_int}
+_CT = {"p": ctypes.c_void_p, "i": ctypes.c_int, "l": ctypes.c_longlong}
 
 
 def _nvcc() -> str:
@@ -110,8 +113,8 @@ def build(verbose: bool = False) -> str:
     """Compile every ``csrc/*.cu`` (one nvcc each, in parallel) and link
     them into the library of :func:`_library_path`; returns its path.  The
     compilers' output (ptxas's ``-v`` report among it) goes to the
-    library's ``.ptxas`` log, and to stdout where ``verbose``.  A library
-    without its log is built again."""
+    library's ``.ptxas`` log, and to stdout where ``verbose``, with each
+    source's compile time.  A library without its log is built again."""
     srcs = _sources()
     so = _library_path()
     if os.path.exists(so) and os.path.exists(_ptxas_log(so)):
@@ -119,22 +122,36 @@ def build(verbose: bool = False) -> str:
     tag = os.path.basename(so)[len("libringo_kernels_"):-len(".so")]
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = _nvcc()
-    objs, procs = [], []
+    t0, objs, procs = time.perf_counter(), [], []
     for src in srcs:
         obj = os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o")
         objs.append(obj)
         procs.append(subprocess.Popen(
             [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", src, "-o", obj],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+    outs, secs = {}, {}
+
+    def wait(src, pr):   # each source's output and own compile time
+        outs[src] = pr.communicate()[0]
+        secs[src] = time.perf_counter() - t0
+
+    waits = [threading.Thread(target=wait, args=sp) for sp in zip(srcs, procs)]
+    for w in waits:
+        w.start()
+    for w in waits:
+        w.join()
     failed, log = [], []
     for src, pr in zip(srcs, procs):
-        out, _ = pr.communicate()
-        text = out.decode(errors="replace")
+        text = outs[src].decode(errors="replace")
         log.append(text)
         if pr.returncode != 0:
             failed.append(f"{src}:\n{text}")
         elif verbose and text:
             print(text, flush=True)
+    if verbose:
+        print("nvcc seconds: " + ", ".join(
+            f"{os.path.basename(src)} {secs[src]:.1f}" for src in srcs),
+            flush=True)
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     with open(_ptxas_log(so), "w") as f:

@@ -560,8 +560,8 @@ def kernel_rows(params, t: int, seed: int = DEFAULT_SEED) -> list[dict]:
     x = _residues(ring, (K, t * B, d), gen)
     kp = mac_matmul.folded(ring, key)
     _same(mac_matmul.mod_mac(ring, kp, x), mac_plain(ring, key, x), "mac")
-    row("mod_mac", "mac", "torch (float64 matmul)",
-        "ringo_tpu_torch/ops/mac_matmul.py", "ringo_tpu/ops/mac_matmul.py:179",
+    row("mod_mac", "mac", "cuda",
+        "ringo_tpu_torch/csrc/mac.cu", "ringo_tpu/ops/mac_matmul.py:179",
         f"[{L}, {J}, {K}] x [{L}, {K}, {t * B}] x d={d}",
         lambda: mac_matmul.mod_mac(ring, kp, x), mac_work(L, d, J, K, t * B))
     del key, x, kp

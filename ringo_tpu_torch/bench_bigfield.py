@@ -23,8 +23,9 @@ registers, stack and spills from ptxas (the mul_mod, reduce_cols, horner
 and powers kernels at every width), its mul_mod at [16, 2^19] (ZP255)
 and [14, 4, 2^15] x [14, 1, 2^15] (ZP220, the Buckler ring), reduce_cols
 at [29, 32, 2048] (ZP220, BigLinMap's 2w + 1 columns), HORNER at [16, 1,
-2^19] (the Jindo evaluate) and [14, 4, 2^15] and POWERS at [14, 2^15]
-(the PublicKey prove and verify) held exactly against the plain
+2^19] (the Jindo evaluate) and [14, 4, 2^15], POWERS at [14, 2^15]
+(the PublicKey prove and verify) and TREE_SUM at [14, 4, 2^15] and [16, 1,
+2^19] held exactly against the plain
 versions, then timed in turns (the variants in order, then reversed) by
 CUDA events around calls of the C entry point
 (no wrapper): over back-to-back calls (``event_ms``, ``bench.time_ms``
@@ -34,7 +35,8 @@ reading a 128 MB buffer (``bench.cold_ms``: operands in device memory) or
 after a wait on the card that reads nothing (``bench.warm_ms``: operands
 left in L2 by the last call, where they fit); beside
 them the shipped wrapper's time by ``bench.time_ms``, which chip_smoke.py
-reports (its host cost a call bounds it where the kernel is shorter).
+reports (its host cost a call bounds it where the kernel is shorter), and
+the three timings' floor: a one-element fill timed the same ways.
 
 Prints the card's name and power limit and one JSON object, and writes
 the same to chiprun_out/bench_bigfield.json (--kernels:
@@ -168,7 +170,8 @@ def build_variants(variants, entry: str = "ringo_bigfield",
 def kernel_cases():
     """(label, BigMul, op, operands, m, wrapper call, plain version) at
     the shapes the main paths give mul_mod, reduce_cols, HORNER (m: the
-    coefficients) and POWERS (m: the powers)."""
+    coefficients), POWERS (m: the powers) and TREE_SUM (the verifier's
+    decoded-evaluation sum and the PublicKey ring's)."""
     import torch
 
     from .fields import ZP220, ZP255, bigfield
@@ -209,6 +212,11 @@ def kernel_cases():
         ("POWERS ZP220 [14, 2^15]", b220, bigfield.POWERS, (s220,), 1 << 15,
          lambda: bigfield.powers_cuda(b220, s220, 1 << 15),
          lambda: h220.powers_plain(s220, 1 << 15)),
+        ("TREE_SUM ZP220 [14, 4, 2^15]", b220, bigfield.TREE_SUM, (v,), 0,
+         lambda: horner.tree_sum(b220, v), lambda: horner.tree_sum_plain(b220, v)),
+        ("TREE_SUM ZP255 [16, 1, 2^19]", b255, bigfield.TREE_SUM, (xv,), 0,
+         lambda: horner.tree_sum(b255, xv),
+         lambda: horner.tree_sum_plain(b255, xv)),
     ]
 
 
@@ -233,6 +241,12 @@ def kernel_times(args, here: str, rec: dict) -> None:
     lib.join()
     rec["ptxas"] = {name: usage for name, _, usage in built}
     stream = backend.stream_ptr(torch.empty(1, device="cuda"))
+    # the method's floor: a one-element fill, timed the same three ways
+    one = torch.zeros(1, device="cuda")
+    rec["floor"] = dict(label="one-element fill", event_ms=bench.time_ms(
+        one.zero_, reps=50, windows=5), cold_ms=bench.cold_ms(one.zero_),
+        warm_ms=bench.warm_ms(one.zero_))
+    print(json.dumps(rec["floor"]), flush=True)
     rec["kernels"] = []
     for label, big, op, ts, m, wrapped, plain in kernel_cases():
         want = plain()

@@ -36,9 +36,11 @@
 // through its pointer.
 //
 // tree_sum, horner and powers are one launch each.  tree_sum: grid-stride
-// modular sums into per-block partials (warp shuffles, then shared
-// memory); the last block of a row to finish, by a ticket counter, sums
-// the row's partials and resets the counter.  horner: sum_i v[i] * x^i mod
+// column sums of the digits into per-block partials (warp shuffles, then
+// shared memory; carried into 16-bit digits only where a column could
+// overflow, no modular addition); the last block of a row to finish, by a
+// ticket counter, adds the row's partials, reduces the value mod p once and
+// resets the counter.  horner: sum_i v[i] * x^i mod
 // p for t rows at once with one multiply-add mod p a coefficient (Horner's
 // rule in x^S over a lane's coefficients i = g mod S) and the lane weights
 // x^g from three small shared tables, the same last-block finish; no power
@@ -470,12 +472,64 @@ __device__ __forceinline__ void finish_row(const Args& a, const Consts& c,
   }
 }
 
-// block b of row r sums elements part, part + parts * 256, ... of the row
+// The tree sum adds digits, not residues: a thread adds digit j of each of
+// its values into a 32-bit column sum S[j], with no carry and no
+// comparison with p, and carries the columns into 16-bit digits only where
+// a column could pass 2^31 (every kFold values, at the thread's end, for
+// the block's and the row's sums).  A sum of fewer than 2^31 values below
+// p is below 2^31 p < B^(W+2), so W + 2 digits hold every partial; the
+// row's last block reduces the row's value mod p once (barrett_words).
+constexpr int kFold = 1 << 15;   // S[j] < 2^16 + kFold * (2^16 - 1) < 2^32
+
+// the column sums s (each < 2^32 - 2^16) as N 16-bit digits of the same
+// value; the caller's bound on the value keeps the carry out of the top 0
+template <int N>
+__device__ __forceinline__ void carry_digits(uint32_t (&s)[N]) {
+  uint32_t c = 0;
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const uint32_t t = s[j] + c;
+    s[j] = t & kMask;
+    c = t >> 16;
+  }
+}
+
+// the block's column sums of digit vectors (each column < 2^16), valid in
+// thread 0: < 2^16 * 1024 = 2^26
+template <int N>
+__device__ __forceinline__ void block_add(uint32_t (&s)[N]) {
+  __shared__ uint32_t warp_sums[32][N];
+#pragma unroll
+  for (int sh = 16; sh > 0; sh >>= 1) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) s[j] += __shfl_down_sync(0xFFFFFFFFu, s[j], sh);
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) warp_sums[warp][j] = s[j];
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const int nw = blockDim.x >> 5;
+#pragma unroll
+    for (int j = 0; j < N; ++j) s[j] = lane < nw ? warp_sums[lane][j] : 0u;
+#pragma unroll
+    for (int sh = 16; sh > 0; sh >>= 1) {
+#pragma unroll
+      for (int j = 0; j < N; ++j) s[j] += __shfl_down_sync(0xFFFFFFFFu, s[j], sh);
+    }
+  }
+}
+
+// block b of row r adds elements part, part + parts * 256, ... of the row
 // (with aux, pairs of neighbours in 16-byte loads) into the partial
-// scratch[:, r * parts + part]; the row's last block sums its partials
+// scratch[:, r * parts + part], W + 2 digits; the row's last block adds
+// the partials and reduces the sum mod p
 template <int W>
 __global__ void __launch_bounds__(kSumThreads)
-tree_sum_kernel(const Args a, const Consts c) {
+tree_sum_kernel(const Args a, const Words c) {
+  constexpr int D = W + 2;
   const unsigned row = blockIdx.x / a.parts;
   const unsigned part = blockIdx.x % a.parts;
   long long off[1];
@@ -483,38 +537,62 @@ tree_sum_kernel(const Args a, const Consts c) {
   const long long* x = a.op[0].ptr + off[0];
   const long long ds = a.op[0].dstride;
   const long long step = (long long)a.parts * kSumThreads;
-  uint32_t acc[W];
+  uint32_t s[D];
 #pragma unroll
-  for (int j = 0; j < W; ++j) acc[j] = 0;
+  for (int j = 0; j < D; ++j) s[j] = 0;
+  int since = 0;   // values added since the last carry
   long long e = (long long)part * kSumThreads + threadIdx.x;
   if (a.aux) {
     for (; 2 * e + 1 < a.m; e += step) {
-      uint32_t v0[W], v1[W];
 #pragma unroll
       for (int j = 0; j < W; ++j) {
         const longlong2 d = reinterpret_cast<const longlong2*>(x + j * ds)[e];
-        v0[j] = (uint32_t)d.x;
-        v1[j] = (uint32_t)d.y;
+        s[j] += (uint32_t)d.x + (uint32_t)d.y;
       }
-      add_mod<W>(acc, v0, c);
-      add_mod<W>(acc, v1, c);
+      if ((since += 2) >= kFold) {
+        carry_digits<D>(s);
+        since = 0;
+      }
     }
     e = 2 * e < a.m ? 2 * e : a.m;   // the odd last element, if this lane's
   }
   for (; e < a.m; e += step) {
-    uint32_t v[W];
 #pragma unroll
-    for (int j = 0; j < W; ++j) v[j] = (uint32_t)x[e * a.mstride + j * ds];
-    add_mod<W>(acc, v, c);
+    for (int j = 0; j < W; ++j) s[j] += (uint32_t)x[e * a.mstride + j * ds];
+    if (++since >= kFold) {
+      carry_digits<D>(s);
+      since = 0;
+    }
   }
-  block_sum<W>(acc, c);
+  carry_digits<D>(s);
+  block_add<D>(s);
   const long long np = (long long)a.n * a.parts;
   if (threadIdx.x == 0) {
+    carry_digits<D>(s);
 #pragma unroll
-    for (int j = 0; j < W; ++j) a.scratch[j * np + blockIdx.x] = acc[j];
+    for (int j = 0; j < D; ++j) a.scratch[j * np + blockIdx.x] = s[j];
   }
-  if (last_of_row(a.count, row, a.parts))
-    finish_row<W>(a, c, a.scratch + (long long)row * a.parts, 1, np, row);
+  if (!last_of_row(a.count, row, a.parts)) return;
+  const unsigned* ps = a.scratch + (long long)row * a.parts;
+#pragma unroll
+  for (int j = 0; j < D; ++j) s[j] = 0;
+  for (int k = threadIdx.x; k < a.parts; k += blockDim.x) {
+#pragma unroll
+    for (int j = 0; j < D; ++j) s[j] += __ldcg(ps + k + j * np);
+  }
+  block_add<D>(s);
+  if (threadIdx.x == 0) {
+    carry_digits<D>(s);
+    uint32_t z[(D + 1) / 2], r[(W + 3) / 2];
+#pragma unroll
+    for (int k = 0; k < (D + 1) / 2; ++k)
+      z[k] = s[2 * k] | (2 * k + 1 < D ? s[2 * k + 1] << 16 : 0u);
+    barrett_words<W>(z, c, r);
+#pragma unroll
+    for (int j = 0; j < W; ++j)
+      a.out[(long long)j * a.n + row] = (r[j / 2] >> (16 * (j % 2))) & kMask;
+    a.count[row] = 0;
+  }
 }
 
 // ------------------------------------- Horner's evaluation, the powers of x
@@ -882,7 +960,7 @@ int launch(int op, const Args& a, const Consts& c, const Words& wc,
   } else if (op == REDUCE_COLS) {
     reduce_cols_kernel<W><<<(a.n + T - 1) / T, T, 0, st>>>(a, wc);
   } else if (op == TREE_SUM) {
-    tree_sum_kernel<W><<<a.n * a.parts, kSumThreads, 0, st>>>(a, c);
+    tree_sum_kernel<W><<<a.n * a.parts, kSumThreads, 0, st>>>(a, wc);
   } else if (op == HORNER) {
     horner_kernel<W><<<dim3(a.parts, a.n), HORNER_THREADS(W), 0, st>>>(a, c, wc);
   } else {

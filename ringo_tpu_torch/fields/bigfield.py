@@ -289,17 +289,31 @@ def _sum_buffers(like: torch.Tensor, stream: int, rows: int, words: int):
 
 def sum_parts(rows: int, m: int) -> int:
     """Partial sums per row of a tree sum: about ``SUM_BLOCKS`` blocks in
-    all, each thread summing at least 4 values."""
+    all, each thread summing at least 2 values (one 16-byte pair load a
+    digit), so that a row's loads are in flight at once."""
     want = max(1, SUM_BLOCKS // max(rows, 1))
-    return max(1, min(-(-m // (4 * SUM_THREADS)), want, MAX_PARTS))
+    return max(1, min(-(-m // (2 * SUM_THREADS)), want, MAX_PARTS))
 
 
 def tree_sum_cuda(big, x: torch.Tensor) -> torch.Tensor:
     """``horner.tree_sum``: the sum mod p of canonical digit planes
     [w, ..., m] over the last axis -> [w, ...], in one launch (per-block
-    partial sums; the last block of each row sums the row's partials).
+    column sums of the digits as w + 2 digits; the last block of each row
+    adds the row's partials and reduces the sum mod p).
     Rows whose elements are neighbours in memory, 16-byte aligned at even
     strides, are read in 16-byte pairs."""
+    _, addr, shape, n, parts = _tree_sum_header(big, x)
+    out = torch.empty(shape, dtype=torch.int64, device=x.device)
+    if n:
+        _launch(TREE_SUM, addr, big.consts_addr, x, "tree_sum",
+                out.data_ptr(), x.data_ptr(),
+                sums=(n, (big.w + 2) * n * parts))
+    return out
+
+
+def _tree_sum_header(big, x: torch.Tensor):
+    """(header, its address, output shape, rows, partials a row) of a tree
+    sum of x."""
     aligned = x.data_ptr() % 16 == 0
 
     def build():
@@ -320,13 +334,7 @@ def tree_sum_cuda(big, x: torch.Tensor) -> torch.Tensor:
             s % 2 == 0 for s in hdr[H_OPS:H_OPS + H_OP_LEN])
         return hdr, (big.w,) + vshape, n, parts
 
-    _, addr, shape, n, parts = _header(
-        (TREE_SUM, big.w, aligned, _key((x,))), build)
-    out = torch.empty(shape, dtype=torch.int64, device=x.device)
-    if n:
-        _launch(TREE_SUM, addr, big.consts_addr, x, "tree_sum",
-                out.data_ptr(), x.data_ptr(), sums=(n, big.w * n * parts))
-    return out
+    return _header((TREE_SUM, big.w, aligned, _key((x,))), build)
 
 
 # ------------------------------------------ Horner's evaluation, the powers
@@ -438,7 +446,8 @@ def launch_args(big, op: int, ts, n: int = 0) -> tuple:
     """The arguments of ``ringo_bigfield`` that the wrapper of ``op``
     passes for operands ``ts``, all but the output and the stream, for
     timing the C entry alone: ``MUL_MOD`` (x, y), ``REDUCE_COLS`` (cols,),
-    ``HORNER`` (vs, steps), ``POWERS`` (steps,) with ``n`` powers ->
+    ``HORNER`` (vs, steps), ``POWERS`` (steps,) with ``n`` powers,
+    ``TREE_SUM`` (x,) ->
     (header, operand pointers [a, b, c], partials, ticket counters); the
     header is the int64 array whose address the wrapper passes."""
     x = ts[0]
@@ -448,11 +457,16 @@ def launch_args(big, op: int, ts, n: int = 0) -> tuple:
                 *_sum_buffers(x, backend.stream_ptr(x), t, big.w * t * parts))
     if op == POWERS:
         return _powers_header(big, x, n)[0], [0, x.data_ptr(), 0], 0, 0
+    if op == TREE_SUM:
+        hdr, _, _, rows, parts = _tree_sum_header(big, x)
+        return (hdr, [x.data_ptr(), 0, 0],
+                *_sum_buffers(x, backend.stream_ptr(x), rows,
+                              (big.w + 2) * rows * parts))
     if op == MUL_MOD:
         hit = _elementwise_header(op, big.w, ts, "mul_mod", digits=big.w)
     elif op == REDUCE_COLS:
         hit = _elementwise_header(op, big.w, ts, "reduce_cols", m=_digits(x))
     else:
         raise ValueError(f"launch_args: op {op} is not mul_mod, reduce_cols, "
-                         "horner or powers")
+                         "horner, powers or tree_sum")
     return hit[0], [t.data_ptr() for t in ts] + [0] * (3 - len(ts)), 0, 0

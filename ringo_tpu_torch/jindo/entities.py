@@ -87,9 +87,9 @@ class CommitKey:
         return self.crs
 
     def folded(self, ring_q, ring_q_out):
-        """The key as MAC planes (ops/mac_matmul.py), folded once per key
-        and shared by the provers and verifiers that hold it:
-        ((planes, corr) of [In | MLWE] over ring_q, (planes, corr) of Out
+        """The key as the MAC takes it (ops/mac_matmul.py ``folded``: the
+        residues key * R^-1 mod q), folded once per key and shared by the
+        provers and verifiers that hold it: ([In | MLWE] over ring_q, Out
         over ring_q_out)."""
         if self._folded is None:
             self._folded = (

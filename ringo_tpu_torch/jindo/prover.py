@@ -177,8 +177,8 @@ class Prover:
 
     def ck_device(self):
         """The commit key as the MAC operands the stages take: (folded
-        [In | MLWE] over ring_q, folded Out over ring_q_out), each a
-        (planes, corr) pair of ``mac_matmul.folded``."""
+        [In | MLWE] over ring_q, folded Out over ring_q_out), each the
+        residues ``mac_matmul.folded`` gives."""
         return self._pk_in, self._pk_out
 
     # ------------------------------------------------------------ host side

@@ -203,7 +203,8 @@ def test_wrappers_check_their_arguments(case, monkeypatch):
                 fn()
 
 
-@pytest.mark.parametrize("op", ["mul_mod", "reduce_cols", "horner", "powers"])
+@pytest.mark.parametrize("op", ["mul_mod", "reduce_cols", "horner", "powers",
+                                "tree_sum"])
 def test_launch_args_are_the_wrappers(op, monkeypatch):
     """``launch_args`` (the C entry's arguments for timing it alone) hands
     out the very header the wrapper builds and launches with, and the
@@ -220,7 +221,8 @@ def test_launch_args_are_the_wrappers(op, monkeypatch):
     steps = plan.steps_for(12345, 8)
     vs = torch.stack([x, x.flip(1)], 1)
     code = {"mul_mod": bigfield.MUL_MOD, "reduce_cols": bigfield.REDUCE_COLS,
-            "horner": bigfield.HORNER, "powers": bigfield.POWERS}[op]
+            "horner": bigfield.HORNER, "powers": bigfield.POWERS,
+            "tree_sum": bigfield.TREE_SUM}[op]
     ts, n, wrapper, ptrs = {
         "mul_mod": ((x, y), 0, lambda: bigfield.mul_mod_cuda(big, x, y),
                     [x.data_ptr(), y.data_ptr(), 0]),
@@ -230,6 +232,8 @@ def test_launch_args_are_the_wrappers(op, monkeypatch):
                    [vs.data_ptr(), steps.data_ptr(), 0]),
         "powers": ((steps,), 8, lambda: bigfield.powers_cuda(big, steps, 8),
                    [0, steps.data_ptr(), 0]),
+        "tree_sum": ((x,), 0, lambda: bigfield.tree_sum_cuda(big, x),
+                     [x.data_ptr(), 0, 0]),
     }[op]
     hdr, got, scratch, count = bigfield.launch_args(big, code, ts, n)
     assert got == ptrs
@@ -240,6 +244,9 @@ def test_launch_args_are_the_wrappers(op, monkeypatch):
     if op == "horner":
         assert scratch and count
         assert hdr[bigfield.H_PARTS] == bigfield.horner_blocks(big.w, 2, vs.shape[2])
+    elif op == "tree_sum":
+        assert scratch and count
+        assert hdr[bigfield.H_PARTS] == bigfield.sum_parts(1, x.shape[1])
     else:
         assert scratch == count == 0
     with pytest.raises(ValueError, match="on the card"):
@@ -483,70 +490,91 @@ def test_kernel_words_reduce_cols(name, m):
     assert [_w_reduce_cols(big, c) for c in _lanes(cols)] == _lanes(want)
 
 
-def _k_add_mod(a, v, p):
-    """add_mod<W>: canonical a + v mod p."""
-    t, d, carry, borrow = [], [], 0, 0
-    for j in range(len(a)):
-        s = a[j] + v[j] + carry
-        t.append(s & MASK)
-        carry = s >> 16
-        e = t[j] - p[j] - borrow
-        d.append(e & MASK)
-        borrow = int(e < 0)
-    return d if carry or not borrow else t
+K_FOLD = 1 << 15      # tree_sum_kernel's kFold
 
 
-def _k_block_sum(vals, p):
-    """block_sum<W>: shuffle-down trees in each warp, then over the warps'
-    sums; the result of thread 0."""
+def _k_carry(s):
+    """carry_digits<N>: column sums (each < 2^32 - 2^16) -> 16-bit digits
+    of the same value; the carry out of the top digit must be 0."""
+    out, c = [], 0
+    for v in s:
+        t = v + c
+        assert t < 1 << 32
+        out.append(t & MASK)
+        c = t >> 16
+    assert c == 0
+    return out
+
+
+def _k_block_add(vals):
+    """block_add<N>: shuffle-down trees of column sums in each warp, then
+    over the warps' sums; the result of thread 0, every column < 2^32."""
     def warp(v):
-        v = list(v)
+        v = [list(x) for x in v]
         for sh in (16, 8, 4, 2, 1):
-            v = [_k_add_mod(v[l], v[l + sh] if l + sh < 32 else v[l], p)
+            v = [[a + b for a, b in zip(v[l], v[l + sh] if l + sh < 32 else v[l])]
                  for l in range(32)]
+        assert max(v[0]) < 1 << 32
         return v[0]
-    zero = [0] * len(p)
+    zero = [0] * len(vals[0])
     sums = [warp(vals[k:k + 32]) for k in range(0, len(vals), 32)]
     return warp(sums + [zero] * (32 - len(sums)))
 
 
-def _k_tree_sum(big, row, pairs):
-    """tree_sum_kernel on one row of digit lists: each block's partial
-    (with ``pairs``, lane e of the grid-stride loop adds elements 2e and
-    2e + 1, and the lane whose pair index reaches (m - 1) / 2 the odd last
-    element), then the last block's sum of the partials."""
-    p = _k_consts(big)[0][:big.w]
-    T, m = bigfield.SUM_THREADS, len(row)
+def _k_tree_sum(big, row, pairs, fold=K_FOLD):
+    """tree_sum_kernel on one row of digit lists: each thread's column sums
+    of its values' digits (with ``pairs``, lane e of the grid-stride loop
+    adds elements 2e and 2e + 1, and the lane whose pair index reaches
+    (m - 1) / 2 the odd last element), carried every ``fold`` values and at
+    the end; each block's column sums carried into w + 2 digits; the last
+    block's sum of the partials carried and reduced by barrett_words."""
+    w = big.w
+    D, T, m = w + 2, bigfield.SUM_THREADS, len(row)
     parts = bigfield.sum_parts(1, m)
-    zero = [0] * big.w
+
+    def add(s, v):
+        s = [a + b for a, b in zip(s, list(v) + [0, 0])]
+        assert max(s) < 1 << 32
+        return s
+
     partials = []
     for part in range(parts):
-        acc = [zero] * T
+        acc = []
         for tid in range(T):
-            e = part * T + tid
+            s, since, e = [0] * D, 0, part * T + tid
             if pairs:
                 while 2 * e + 1 < m:
-                    acc[tid] = _k_add_mod(acc[tid], row[2 * e], p)
-                    acc[tid] = _k_add_mod(acc[tid], row[2 * e + 1], p)
+                    s = add(add(s, row[2 * e]), row[2 * e + 1])
+                    since += 2
+                    if since >= fold:
+                        s, since = _k_carry(s), 0
                     e += parts * T
                 e = min(2 * e, m)
             for e in range(e, m, parts * T):
-                acc[tid] = _k_add_mod(acc[tid], row[e], p)
-        partials.append(_k_block_sum(acc, p))
-    acc = [zero] * T
+                s = add(s, row[e])
+                since += 1
+                if since >= fold:
+                    s, since = _k_carry(s), 0
+            acc.append(_k_carry(s))
+        partials.append(_k_carry(_k_block_add(acc)))
+    acc = [[0] * D for _ in range(T)]
     for tid in range(T):
         for e in range(tid, parts, T):
-            acc[tid] = _k_add_mod(acc[tid], partials[e], p)
-    return _k_block_sum(acc, p)
+            acc[tid] = [a + b for a, b in zip(acc[tid], partials[e])]
+    s = _k_carry(_k_block_add(acc))
+    z = _w_pack(s, (D + 1) // 2)
+    return _w_digits(_w_barrett(w, z, _w_consts(big)), w)
 
 
 @pytest.mark.parametrize("name,m", [("zp110", 1), ("zp110", 2600),
                                     ("zp255", 700), ("zp880", 40),
                                     ("zp255", 2051)])
 def test_kernel_steps_tree_sum(name, m):
-    """The kernel's order of modular additions, with pair loads and one by
-    one, gives the plain version's digits for canonical values (0 and p-1
-    among them)."""
+    """The kernel's column sums of the digits, with pair loads and one by
+    one, carried at the kernel's points (and, at a fold of 3 values, far
+    more often), and its one reduction mod p give the plain version's
+    digits for canonical values (0 and p-1 among them); no column passes
+    2^32 and no carry leaves the w + 2 digits."""
     spec = FIELDS[name]
     big = BigMul(spec)
     vals = _values(spec, max(m - 3, 0), m)[-m:]
@@ -554,6 +582,7 @@ def test_kernel_steps_tree_sum(name, m):
     want = horner.tree_sum_plain(big, x[:, None, :])[:, 0]
     for pairs in (True, False):
         assert _k_tree_sum(big, _lanes(x), pairs) == want.tolist()
+        assert _k_tree_sum(big, _lanes(x), pairs, fold=3) == want.tolist()
     assert limb.digits_to_ints(want[:, None]) == [sum(vals) % spec.p]
 
 

@@ -48,7 +48,8 @@ def test_mod_mac_matches_jax(J, K, n):
                                   np.asarray(kp))
     np.testing.assert_array_equal(corr.numpy(),
                                   np.asarray(ref_mac.fold_corr(kp)))
-    got = mac_matmul.mod_mac(port, (planes, corr), PortRing.from_planes(x))
+    got = mac_matmul.mod_mac(port, mac_matmul.folded(port, PortRing.from_planes(key)),
+                             PortRing.from_planes(x))
     np.testing.assert_array_equal(PortRing.to_planes(got).numpy(), want)
 
 
